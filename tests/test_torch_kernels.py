@@ -1,0 +1,85 @@
+"""The port's kernel wrappers (kernels A and B), without JAX.
+
+On the CPU the wrappers must run the plain versions and count no launch;
+on any other device they launch the kernel or raise. The CUDA cases hold
+each kernel against its plain version on the card. This file imports
+nothing of JAX, so it also runs on a GPU machine without it:
+
+    python -m pytest --noconftest -q tests/test_torch_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from whisper_nemo_tpu_torch.ops import attention, cross_decode
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels build with nvcc and run only on the card")
+    return torch.device("cuda")
+
+
+def test_wrappers_take_the_plain_version_on_cpu():
+    """On CPU tensors the kernel wrappers return exactly the plain
+    versions' results and never count a launch."""
+    rng = np.random.default_rng(6)
+    cross_decode.cross_attention_decode_layered.launches = 0
+    attention.encoder_attention.launches = 0
+    kv = cross_decode.quantize_cross_kv_decode(
+        torch.from_numpy(rng.standard_normal((2, 2, 100, 4, 64)).astype(np.float32)),
+        torch.from_numpy(rng.standard_normal((2, 2, 100, 4, 64)).astype(np.float32)),
+    )
+    q = torch.from_numpy(rng.standard_normal((2, 1, 4, 64)).astype(np.float32))
+    out = cross_decode.cross_attention_decode_layered(
+        q, kv["kv_dec"], kv["k_dec_scale"][0], kv["v_dec_scale"][0], 0, 100
+    )
+    qs = q[:, 0] * (kv["k_dec_scale"][0] * 64**-0.5)[None]
+    plain = cross_decode._cross_attention_decode_plain(qs, kv["kv_dec"], 0, 100, 8, 1)
+    torch.testing.assert_close(out, (plain * kv["v_dec_scale"][0])[:, None], rtol=0, atol=0)
+
+    x = torch.from_numpy(rng.standard_normal((3, 3, 50, 4, 64)).astype(np.float32))
+    got = attention.multihead_attention(x[0], x[1], x[2])
+    torch.testing.assert_close(got, attention._xla_attention(x[0], x[1], x[2]), rtol=0, atol=0)
+    assert cross_decode.cross_attention_decode_layered.launches == 0
+    assert attention.encoder_attention.launches == 0
+
+
+def test_wrappers_raise_off_the_cpu_without_cuda():
+    """A tensor that is neither on the CPU nor on a CUDA device (here
+    PyTorch's shape-only "meta" device) is refused before any build or
+    launch: the wrappers never fall back to the plain version."""
+    meta = torch.device("meta")
+    q = torch.empty((4, 1, 2, 64), device=meta)
+    kv = torch.empty((1, 2, 2, 128, 128), dtype=torch.int8, device=meta)
+    scale = torch.empty((2, 64), device=meta)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cross_decode.cross_attention_decode_layered(q, kv, scale, scale, 0, 100, beam=2)
+    x = torch.empty((2, 100, 2, 64), dtype=torch.bfloat16, device=meta)
+    with pytest.raises(ValueError, match="CUDA device"):
+        attention.encoder_attention(x, x, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_kernels_match_plain_on_cuda(cuda_device, bits):
+    """Kernels A and B against their plain versions on the card, at small
+    shapes with a ragged length (chip_smoke.py checks the main path's
+    shapes). A: 5e-3 per unit of v_scale (outputs are weighted sums of
+    int8 values up to 127); B: 1e-2 on bf16 outputs of order 1."""
+    g = torch.Generator(device=cuda_device).manual_seed(bits)
+    rows = 128 if bits == 8 else 64
+    kv = torch.randint(-127, 128, (2, 3, 4, rows, 256), device=cuda_device, generator=g,
+                       dtype=torch.int8)
+    qs = torch.randn((6, 4, 64), device=cuda_device, generator=g) * 0.01
+    for layer in (0, 1):
+        got = cross_decode._cross_attention_decode_cuda(qs, kv, layer, 200, bits, 2)
+        ref = cross_decode._cross_attention_decode_plain(qs, kv, layer, 200, bits, 2)
+        torch.testing.assert_close(got, ref, atol=5e-3 * 127, rtol=0)
+    q, k, v = (torch.randn((2, 150, 3, 64), device=cuda_device, generator=g).bfloat16()
+               for _ in range(3))
+    got = attention._encoder_attention_cuda(q, k, v)
+    torch.testing.assert_close(got.float(), attention._xla_attention(q, k, v).float(),
+                               atol=1e-2, rtol=0)

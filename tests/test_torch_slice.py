@@ -1,0 +1,212 @@
+"""The port's batched ASR slice against the JAX package, and the port's
+independence from JAX.
+
+The slice runs the faster-whisper facade of both packages on one seeded
+waveform with one JAX param tree (converted array by array), at int8
+compute and tiny dims. The JAX engine runs as its own tests run it on the
+CPU: greedy decode over the einsum form of the int8 cross-KV, which has
+the same quantization as the port's decode layout.
+"""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from whisper_nemo_tpu.asr import faster_whisper_api as jax_api
+from whisper_nemo_tpu.engine.decode import build_suppress_mask
+from whisper_nemo_tpu.models import whisper as jw
+from whisper_nemo_tpu.models import whisper_stacked as jws
+from whisper_nemo_tpu.ops.mel import log_mel_spectrogram_batch as jax_mel_batch
+from whisper_nemo_tpu.text.tokenizer import WhisperTokenizer as JaxTokenizer
+from whisper_nemo_tpu.text.tokenizer import get_suppressed_tokens
+from whisper_nemo_tpu.vad.energy import get_speech_timestamps as jax_speech_timestamps
+from whisper_nemo_tpu_torch.asr import BatchedInferencePipeline, WhisperModel
+from whisper_nemo_tpu_torch.engine.checkpoint import params_from_jax
+from whisper_nemo_tpu_torch.engine.transcribe import WhisperEngine
+from whisper_nemo_tpu_torch.models.whisper import WhisperDims
+from whisper_nemo_tpu_torch.text.tokenizer import WhisperTokenizer
+from whisper_nemo_tpu_torch.vad.energy import DEVICE_ENERGY_FRAMES, get_speech_timestamps
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+SR = 16000
+DIMS = (80, 1500, 64, 4, 1, 51864, 64, 64, 4, 2)
+BATCH = 2
+# The random init's logits are nearly flat (top-2 margins near 1e-3), so
+# greedy picks meet near-ties; int8 decode-step logits agree to 0.02
+# (test_torch_whisper.py), so a differing pick must be that close.
+TIE_TOL = 0.02
+
+
+def speechlike(seconds: float, seed: int) -> np.ndarray:
+    """Seeded bursts of modulated noise (1.5-8 s) between quiet gaps."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * SR)
+    audio = (rng.standard_normal(n) * 1e-3).astype(np.float32)
+    t = int(rng.uniform(0.2, 1.0) * SR)
+    while t < n:
+        m = min(int(rng.uniform(1.5, 8.0) * SR), n - t)
+        ph = np.arange(m) / SR
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(2, 6) * ph)
+        tone = np.sin(2 * np.pi * rng.uniform(120, 300) * ph)
+        audio[t : t + m] += (0.2 * env * (tone + 0.5 * rng.standard_normal(m))).astype(np.float32)
+        t += m + int(rng.uniform(0.3, 1.5) * SR)
+    return audio
+
+
+def _first_difference(a, b, eot):
+    a, b = list(a) + [eot], list(b) + [eot]
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _jax_step_logits(engine, audio, windows, row, prefix):
+    """JAX's filtered f32 logits for window ``windows[row]`` after the
+    teacher-forced ``prefix``, over the batch the window was decoded in
+    (the int8 cross-KV scales are taken over the batch)."""
+    waves = np.zeros((BATCH, 480000), np.float32)
+    for i, (s, e) in enumerate(windows):
+        n = min(e - s, 480000)
+        waves[i, :n] = audio[s : s + n]
+    feats = engine.encode_windows(jax_mel_batch(jnp.asarray(waves), 80)).astype(jnp.bfloat16)
+    stacked = engine._params_stacked
+    ckv = jws.quantize_cross_kv_stacked(jws.cross_attention_kv_stacked(stacked, feats, engine.dims))
+    cache = jws.init_stacked_cache(BATCH, engine.dims, jnp.bfloat16, cache_len=128)
+    tokens = jnp.asarray([prefix] * BATCH)
+    x, _ = jws.prefill_cache_stacked(stacked, tokens, cache, ckv, engine.dims, jnp.bfloat16)
+    logits = np.array(jw._vocab_logits(stacked["decoder"], x[row, -1]))
+    tok = engine.tokenizer
+    logits += build_suppress_mask(engine.dims.n_vocab, get_suppressed_tokens(tok, (-1,)))
+    logits[tok.timestamp_begin :] = -np.inf
+    logits[tok.no_timestamps] = -np.inf
+    if len(prefix) == len(tok.sot_sequence(None, without_timestamps=True)):
+        logits[tok.eot] = -np.inf
+    return logits
+
+
+def test_batched_pipeline_matches_jax():
+    """~70 s of audio in batches of 2 (the last one partial): VAD windows
+    and segment bounds equal exactly; greedy tokens equal, or at the
+    first differing token JAX's top-2 logit margin, and its logit gap
+    between the two picks, are below TIE_TOL; text equal where tokens are; no-speech probabilities (f32
+    softmax at the SOT position) and mean log-probs close."""
+    jparams = jw.init_whisper_params(jax.random.PRNGKey(2), jw.WhisperDims(*DIMS))
+    audio = speechlike(70.0, 0)
+
+    # the JAX facade builds its engine by name only: hand it one built on the tree
+    jmodel = jax_api.WhisperModel.__new__(jax_api.WhisperModel)
+    jmodel.engine = jax_api.WhisperEngine(
+        "tiny.en", "int8", params=jparams, dims=jw.WhisperDims(*DIMS),
+        tokenizer=JaxTokenizer.byte_fallback(multilingual=False), mesh=False,
+    )
+    want, want_info = jax_api.BatchedInferencePipeline(jmodel).transcribe(
+        audio, language="en", batch_size=BATCH, beam_size=1
+    )
+    want = list(want)
+
+    model = WhisperModel(
+        "tiny.en", device="cpu", compute_type="int8", params=params_from_jax(jparams),
+        dims=WhisperDims(*DIMS), tokenizer=WhisperTokenizer.byte_fallback(multilingual=False),
+    )
+    got, info = BatchedInferencePipeline(model).transcribe(
+        audio, language="en", batch_size=BATCH, beam_size=1
+    )
+    got = list(got)
+
+    assert len(got) == len(want) >= 3 and len(got) % BATCH, "want a partial last batch"
+    assert [(s.start, s.end, s.seek) for s in got] == [(s.start, s.end, s.seek) for s in want]
+    assert info.duration == want_info.duration
+    assert info.duration_after_vad == want_info.duration_after_vad
+    eot = model.engine.tokenizer.eot
+    prompt = model.engine.tokenizer.sot_sequence(None, without_timestamps=True)
+    windows = [(int(round(s.start * SR)), int(round(s.end * SR))) for s in want]
+    for idx, (g, w) in enumerate(zip(got, want)):
+        assert abs(g.no_speech_prob - w.no_speech_prob) < 1e-3
+        j = _first_difference(g.tokens, w.tokens, eot)
+        if j is None:
+            assert g.text == w.text
+            assert abs(g.avg_logprob - w.avg_logprob) < 0.02
+            continue
+        first = idx - idx % BATCH
+        batch = windows[first : first + BATCH]
+        batch += [(0, 0)] * (BATCH - len(batch))
+        logits = _jax_step_logits(jmodel.engine, audio, batch, idx % BATCH, prompt + w.tokens[:j])
+        top2 = np.sort(logits)[-2:]
+        gap = logits[(w.tokens + [eot])[j]] - logits[(g.tokens + [eot])[j]]
+        assert max(top2[1] - top2[0], gap) < TIE_TOL, (idx, j, top2, gap)
+
+
+@pytest.mark.parametrize("seconds", [70.0, 420.0])
+def test_speech_timestamps_match_jax(seconds):
+    """Energy VAD spans equal exactly: 70 s takes the host cumsum, 420 s
+    (20,999 frames) the frame energies on the tensors' device."""
+    audio = speechlike(seconds, 3)
+    n_frames = (len(audio) - 640) // 320 + 1
+    assert (n_frames > DEVICE_ENERGY_FRAMES) == (seconds > 400)
+    assert get_speech_timestamps(audio, device="cpu") == jax_speech_timestamps(audio)
+
+
+def test_facade_refuses_what_the_port_lacks():
+    """beam search, word timestamps, the sequential path and device
+    "auto" raise instead of running something else."""
+    model = WhisperModel(
+        "tiny.en", device="cpu", compute_type="int8",
+        params=params_from_jax(jw.init_whisper_params(jax.random.PRNGKey(0), jw.WhisperDims(*DIMS))),
+        dims=WhisperDims(*DIMS), tokenizer=WhisperTokenizer.byte_fallback(multilingual=False),
+    )
+    audio = np.zeros(SR, np.float32)
+    pipeline = BatchedInferencePipeline(model)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pipeline.transcribe(audio, language="en", beam_size=5)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pipeline.transcribe(audio, language="en", beam_size=1, word_timestamps=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.transcribe(audio)
+    with pytest.raises(ValueError, match="explicit"):
+        WhisperModel("tiny.en", device="auto")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        WhisperEngine("tiny.en", "float32", device="cpu")
+
+
+def test_port_imports_no_jax():
+    """A fresh interpreter imports every module of the port and loads
+    neither jax nor the JAX package."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "whisper_nemo_tpu_torch").rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'whisper_nemo_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_name_no_jax():
+    """No line of the port imports jax or the JAX package."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|whisper_nemo_tpu)\b", re.M)
+    offenders = [
+        str(p.relative_to(REPO))
+        for p in (REPO / "whisper_nemo_tpu_torch").rglob("*.py")
+        if pattern.search(p.read_text())
+    ]
+    assert offenders == []
+
+
+@pytest.mark.parametrize("name", ["text/tokenizer.py", "text/languages.py", "vad/binarize.py"])
+def test_carried_copies_match_the_jax_package(name):
+    """The jax-free host modules the port carries are the JAX package's,
+    apart from the note that says they are copies."""
+    ours = (REPO / "whisper_nemo_tpu_torch" / name).read_text()
+    theirs = (REPO / "whisper_nemo_tpu" / name).read_text()
+    note = re.compile(r"\nA copy of ``whisper_nemo_tpu/[^`]+``, carried so that the\n"
+                      r"port imports nothing of the JAX package\.\n\n")
+    assert note.sub("\n", ours, count=1) == theirs

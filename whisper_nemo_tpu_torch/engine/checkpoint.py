@@ -1,0 +1,115 @@
+"""Model resolution and the JAX param-tree converter.
+
+Counterpart of ``whisper_nemo_tpu/engine/checkpoint.py``. Checkpoints are
+the JAX package's flat ``.npz`` files (path-joined keys); both packages
+read the same files. :func:`params_from_jax` turns the JAX nested tree
+into the port's: the same dict, tensors instead of arrays, conv weights
+from ``[k, in, out]`` to PyTorch's ``[out, in, k]``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import re
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..models.whisper import WHISPER_DIMS, WhisperDims, init_whisper_params
+
+logger = logging.getLogger(__name__)
+
+_SEP = "/"
+_CONV_KEYS = ("conv1", "conv2")
+
+
+def unflatten_tree(flat: Dict[str, np.ndarray]) -> Any:
+    """Path-joined flat keys -> nested dicts, with all-digit key levels
+    as lists (the layout of the JAX package's ``flatten_tree``)."""
+    root: Dict[str, Any] = {}
+    for path, value in flat.items():
+        keys = path.split(_SEP)
+        node = root
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = value
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(re.fullmatch(r"\d+", k) for k in node):
+            return [listify(node[str(i)]) for i in range(len(node))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
+def _to_tensors(tree: Any, device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_tensors(v, device) for v in tree]
+    arr = np.asarray(tree)
+    if str(arr.dtype) == "bfloat16":  # numpy has no bf16: go through f32
+        return torch.from_numpy(arr.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(device)  # a writable copy
+
+
+def params_from_jax(tree: Any, device="cpu") -> Any:
+    """JAX param tree (nested dicts/lists of numpy-convertible arrays) ->
+    the port's tree of tensors on ``device``. Conv weights go from WIO
+    ``[k, in, out]`` to OIW ``[out, in, k]``; everything else keeps its
+    layout and dtype."""
+    params = _to_tensors(tree, device)
+    enc = params.get("encoder", {})
+    for name in _CONV_KEYS:
+        if name in enc:
+            enc[name]["w"] = enc[name]["w"].permute(2, 1, 0).contiguous()
+    return params
+
+
+def load_params(path: str, device) -> Any:
+    with np.load(path) as data:
+        tree = unflatten_tree({k: data[k] for k in data.files})
+    return params_from_jax(tree, device)
+
+
+def model_cache_dir() -> str:
+    return os.environ.get(
+        "WNT_MODEL_DIR",
+        os.path.join(os.path.expanduser("~"), ".cache", "whisper_nemo_tpu"),
+    )
+
+
+def resolve_model(
+    name: str, device, generator: torch.Generator
+) -> Tuple[Any, WhisperDims]:
+    """Model name or path -> (params on ``device``, dims).
+
+    Order: explicit ``.npz`` path -> ``<cache>/<name>.npz`` -> seeded random
+    initialization on ``device`` from ``generator`` (logged loudly)."""
+    if name.endswith(".npz") and os.path.exists(name):
+        dims = WHISPER_DIMS.get(
+            os.path.splitext(os.path.basename(name))[0], WHISPER_DIMS["tiny"]
+        )
+        return load_params(name, device), dims
+    if name not in WHISPER_DIMS:
+        raise ValueError(
+            f"unknown whisper model {name!r}; expected one of"
+            f" {sorted(WHISPER_DIMS)} or a .npz checkpoint path"
+        )
+    dims = WHISPER_DIMS[name]
+    ckpt = os.path.join(model_cache_dir(), f"{name}.npz")
+    if os.path.exists(ckpt):
+        logger.info("loading %s from %s", name, ckpt)
+        return load_params(ckpt, device), dims
+    logger.warning(
+        "no checkpoint found for %s (looked in %s); using seeded random "
+        "initialization — transcriptions will be meaningless until "
+        "converted weights are installed",
+        name,
+        model_cache_dir(),
+    )
+    return init_whisper_params(dims, device, generator), dims

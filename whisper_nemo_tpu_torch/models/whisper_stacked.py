@@ -1,0 +1,211 @@
+"""Layer-stacked Whisper decoder: prefill and the greedy decode step.
+
+Counterpart of ``whisper_nemo_tpu/models/whisper_stacked.py`` for the
+decode layout only: the cross-KV is the fused int8 ``[L, B, H, 2D, Kp]``
+array of ``ops/cross_decode.py`` on every device, and the self-attention
+cache is ``[L, B, H, D, S]`` (positions last). The layer loop is a Python
+loop; kernel A receives the whole cross-KV stack and the layer index.
+The cache is updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from ..ops.attention import attention_kt, multihead_attention
+from ..ops.cross_decode import (
+    cross_attention_decode_layered,
+    quantize_decode_layout,
+    split_unpack,
+)
+from .whisper import (
+    WhisperDims,
+    _layer_norm,
+    _linear,
+    _mlp,
+    _split_heads,
+    _vocab_logits,
+    causal_mask,
+    embed_tokens,
+)
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _index(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def stack_decoder_blocks(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Per-layer decoder block dicts -> ``layers``: per-layer views (no
+    copies) of ``[n_layers]``-leading stacked tensors, one storage per
+    leaf, for the Python layer loop."""
+    out = dict(params["decoder"])
+    stacked = _stack(out.pop("blocks"))
+    out["layers"] = [
+        _index(stacked, i) for i in range(stacked["ln1"]["g"].shape[0])
+    ]
+    return {"encoder": params["encoder"], "decoder": out}
+
+
+def _proj_layer(p: Dict[str, Any], audio: torch.Tensor, h: int) -> torch.Tensor:
+    """``[B, T, D]`` audio x one layer's projection -> ``[1, B, T, H, Dh]``,
+    with the JAX package's rounding order (product in the compute dtype,
+    then the int8 scale, then an f32 bias)."""
+    if "w_q" in p:
+        y = torch.matmul(audio, p["w_q"].to(audio.dtype)) * p["scale"].to(audio.dtype)
+    else:
+        y = torch.matmul(audio, p["w"].to(audio.dtype))
+    if "b" in p:
+        y = y + p["b"]
+    b, t, d = y.shape
+    return y.reshape(1, b, t, h, d // h)
+
+
+def cross_kv_decode_layout_fused(
+    params: Dict[str, Any], audio: torch.Tensor, dims: WhisperDims, bits: int = 8
+) -> dict:
+    """Cross-attention K/V projection fused with decode-layout
+    quantization, one layer at a time (the scales are per layer, head and
+    channel, so this equals projecting all layers first), into one
+    preallocated ``[L, B, H, 2D, Kp]`` int8 stack."""
+    h = dims.n_text_head
+    kv_dec = k_scales = v_scales = None
+    for li, blk in enumerate(params["decoder"]["layers"]):
+        ca = blk["cross_attn"]
+        k_q, k_s = quantize_decode_layout(_proj_layer(ca["k"], audio, h), bits)
+        v_q, v_s = quantize_decode_layout(_proj_layer(ca["v"], audio, h), bits)
+        if kv_dec is None:
+            n_layers = dims.n_text_layer
+            shape = (n_layers,) + k_q.shape[1:3] + (2 * k_q.shape[3], k_q.shape[4])
+            kv_dec = torch.empty(shape, dtype=torch.int8, device=audio.device)
+            k_scales = torch.empty((n_layers,) + k_s.shape[1:], device=audio.device)
+            v_scales = torch.empty_like(k_scales)
+        half = k_q.shape[3]
+        kv_dec[li, :, :, :half] = k_q[0]
+        kv_dec[li, :, :, half:] = v_q[0]
+        k_scales[li], v_scales[li] = k_s[0], v_s[0]
+    return {
+        "kv_dec": kv_dec,
+        "k_dec_scale": k_scales,
+        "v_dec_scale": v_scales,
+        "_k_len": audio.shape[1],
+        "_bits": bits,
+    }
+
+
+def init_stacked_cache(
+    batch: int, dims: WhisperDims, dtype, cache_len: int, device
+) -> dict:
+    """Self-attention cache ``[L, B, H, D, S]`` of zeros (positions last)."""
+    h = dims.n_text_head
+    shape = (dims.n_text_layer, batch, h, dims.n_text_state // h, cache_len)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def _cross_prefill_declayout(qc, kv_layer, k_scale, v_scale, cross_len: int, bits: int):
+    """Prefill cross-attention of ``[B, P, H, D]`` queries over one layer's
+    fused decode-layout KV ``[B, H, R, Kp]``: the plain dequantizing
+    einsums, with f32 logits as in the JAX package."""
+    k_dec, vt_dec = split_unpack(kv_layer, bits)  # [B, H, D, Kp]
+    scale = qc.shape[-1] ** -0.5
+    qs = qc * (k_scale[None, None] * scale).to(qc.dtype)
+    logits = torch.einsum("bqhd,bhdt->bhqt", qs.float(), k_dec.float())
+    pos = torch.arange(logits.shape[-1], device=logits.device)
+    logits = logits.masked_fill(pos >= cross_len, float("-inf"))
+    w = torch.softmax(logits, dim=-1).to(qc.dtype)
+    cross = torch.einsum("bhqt,bhdt->bqhd", w.float(), vt_dec.float()).to(qc.dtype)
+    return cross * v_scale[None, None].to(qc.dtype)
+
+
+def prefill_cache_stacked(
+    params: Dict[str, Any],
+    prompt: torch.Tensor,  # [B, P]
+    cache: dict,
+    cross_kv: dict,
+    dims: WhisperDims,
+    dtype,
+) -> Tuple[torch.Tensor, dict]:
+    """All prompt positions in one teacher-forced pass: writes the cache at
+    positions ``[0, P)`` and returns the final-norm hidden states
+    ``[B, P, D]``."""
+    dec = params["decoder"]
+    b, p_len = prompt.shape
+    x = embed_tokens(dec, prompt, torch.arange(p_len, device=prompt.device)[None], dtype)
+    mask = causal_mask(p_len, prompt.device)
+    n_head = dims.n_text_head
+    for li, blk in enumerate(dec["layers"]):
+        xn = _layer_norm(blk["ln1"], x)
+        q = _split_heads(_linear(blk["attn"]["q"], xn), n_head)
+        k_new = _split_heads(_linear(blk["attn"]["k"], xn), n_head)
+        v_new = _split_heads(_linear(blk["attn"]["v"], xn), n_head)
+        cache["k"][li, ..., :p_len] = k_new.permute(0, 2, 3, 1)
+        cache["v"][li, ..., :p_len] = v_new.permute(0, 2, 3, 1)
+        attn = multihead_attention(q, k_new, v_new, mask).reshape(b, p_len, -1)
+        x = x + _linear(blk["attn"]["o"], attn)
+
+        xq = _layer_norm(blk["ln_cross"], x)
+        qc = _split_heads(_linear(blk["cross_attn"]["q"], xq), n_head)
+        cross = _cross_prefill_declayout(
+            qc, cross_kv["kv_dec"][li], cross_kv["k_dec_scale"][li],
+            cross_kv["v_dec_scale"][li], cross_kv["_k_len"], cross_kv["_bits"],
+        )
+        x = x + _linear(blk["cross_attn"]["o"], cross.reshape(b, p_len, -1))
+        x = x + _mlp(blk["mlp_in"], blk["mlp_out"], _layer_norm(blk["ln2"], x))
+    return _layer_norm(dec["ln"], x), cache
+
+
+def decode_step_stacked(
+    params: Dict[str, Any],
+    token: torch.Tensor,  # [B]
+    pos: int,
+    cache: dict,
+    cross_kv: dict,
+    dims: WhisperDims,
+    dtype,
+    return_hidden: bool = False,
+) -> Tuple[torch.Tensor, dict]:
+    """One decode step at position ``pos``: f32 logits ``[B, V]`` (or the
+    final-norm hidden ``[B, D]`` with ``return_hidden``) and the cache,
+    updated in place. Cross-attention runs kernel A on a CUDA tensor."""
+    dec = params["decoder"]
+    b = token.shape[0]
+    x = embed_tokens(dec, token, pos, dtype)[:, None, :]
+    cache_len = cache["k"].shape[-1]
+    visible = torch.arange(cache_len, device=token.device) <= pos
+    mask = torch.where(visible, 0.0, float("-inf"))[None, None, None, :]
+    kv_dec, k_len, bits = cross_kv["kv_dec"], cross_kv["_k_len"], cross_kv["_bits"]
+    n_head = dims.n_text_head
+    for li, blk in enumerate(dec["layers"]):
+        xn = _layer_norm(blk["ln1"], x)
+        q = _split_heads(_linear(blk["attn"]["q"], xn), n_head)
+        k_new = _split_heads(_linear(blk["attn"]["k"], xn), n_head)
+        v_new = _split_heads(_linear(blk["attn"]["v"], xn), n_head)
+        cache["k"][li, ..., pos] = k_new[:, 0]
+        cache["v"][li, ..., pos] = v_new[:, 0]
+        attn = attention_kt(q, cache["k"][li], cache["v"][li], mask)
+        x = x + _linear(blk["attn"]["o"], attn.reshape(b, 1, -1))
+
+        xq = _layer_norm(blk["ln_cross"], x)
+        qc = _split_heads(_linear(blk["cross_attn"]["q"], xq), n_head)
+        cross = cross_attention_decode_layered(
+            qc, kv_dec, cross_kv["k_dec_scale"][li], cross_kv["v_dec_scale"][li],
+            li, k_len, bits=bits,
+        ).to(qc.dtype)
+        x = x + _linear(blk["cross_attn"]["o"], cross.reshape(b, 1, -1))
+        x = x + _mlp(blk["mlp_in"], blk["mlp_out"], _layer_norm(blk["ln2"], x))
+    x = _layer_norm(dec["ln"], x)
+    if return_hidden:
+        return x[:, 0, :], cache
+    return _vocab_logits(dec, x[:, 0, :]), cache
