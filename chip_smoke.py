@@ -5,29 +5,43 @@
 
 Phases, one line each:
   1. device: name, power limit, versions; fails without CUDA;
-  2. build: the port's CUDA kernels from whisper_nemo_tpu_torch/csrc;
+  2. build: the port's CUDA kernels from whisper_nemo_tpu_torch/csrc, one
+     nvcc per source, all started together;
   3. kernel A (cross-attention decode) against its plain version at
      medium.en decode shapes, bits 8 and 4, beam 1 and 5;
+  3b. kernel D (batched CTC Viterbi) against its plain version, bit for
+     bit: the segmented aligner's main bucket, a global forced_align of
+     5 minutes of speech, and a trellis whose alpha exceeds shared memory;
   4. kernel B (encoder attention) against its plain version at the
-     medium.en encoder shape;
+     medium.en encoder shape and the wav2vec2 aligner's, with SDPA timed
+     beside it as a yardstick;
   5. slice parity: the batched pipeline at small dims on the GPU (the
      kernels) against the same pipeline on the CPU (the plain versions);
-  6. the main path: WhisperModel("medium.en", compute_type="int8") and
-     BatchedInferencePipeline.transcribe(batch_size=32, beam_size=1) on two
-     requests of 20 minutes of synthetic speech, with the kernels' launch
-     counts checked against the decode steps and encoder batches;
+  5b. alignment parity: wav2vec2 emissions at small dims on the GPU
+     against the CPU, then the segmented aligner on both fed the same
+     emissions;
+  6. the main path, as the CLI flow runs it: WhisperModel("medium.en",
+     compute_type="int8") and BatchedInferencePipeline.transcribe(
+     batch_size=32, beam_size=1) on two requests of 20 minutes of
+     synthetic speech, then align_segments with the full-width
+     (MMS-300M-sized) aligner in bf16 on a synthetic 150 wpm transcript,
+     warm and timed; the kernels' launch counts are checked against the
+     decode steps, encoder batches, emission batches and Viterbi groups;
+  6b. stage times of both stages, measured apart;
   7. the card's name and power limit, the kernels' JSON line, and last
      {"ok": true, "device": {...}}.
 Any phase that fails raises, and the script exits non-zero without the
 last line. Weights are random from --seed unless $WNT_MODEL_DIR holds
-medium.en.npz.
+medium.en.npz and ctc_aligner.npz.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import ctypes.util
 import json
+import math
 import subprocess
 import sys
 import time
@@ -37,6 +51,14 @@ import numpy as np
 SR = 16000
 BOUND_A = 5e-3  # |kernel - plain|: outputs are O(1); f32 sums in another order
 BOUND_B = 1e-2  # bf16 P in the PV product vs bf16 normalized weights; bf16 output
+BOUND_D = 0.0  # one f32 add per state and step and an exact max: bit-equal
+# Phase 5b, f32 emissions of a 2-layer wav2vec2 (log-probs of order 1-10):
+# kernel B rounds its f32 operands to bf16 for the tensor cores (2^-8
+# relative), and the conv stack and linears sum in another order
+EMISSIONS_TOL = 0.05
+# The card's peaks (H100 SXM data sheet, dense): bytes/s of device memory,
+# bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
+HBM_BYTES_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # Phase 5, logits: the GPU slice (kernels, cuBLAS) and the CPU slice
 # (plain versions) round bf16 products in other orders; on the CPU the
 # port's int8 step logits agree with the JAX package's to 0.02
@@ -116,8 +138,11 @@ def phase_build():
     from whisper_nemo_tpu_torch.ops import _build
 
     t0 = time.time()
-    for name in ("cross_decode", "encoder_attention"):
-        _build.load(name)
+    names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
+    check(names == ["cross_decode", "encoder_attention", "viterbi"],
+          f"unexpected kernel sources {names}")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.load, names))
     secs = time.time() - t0
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
@@ -164,19 +189,104 @@ def phase_kernel_a(seed: int) -> dict:
             timing[(bits, beam)] = (ms, plain_ms)
         del kv
     ms, plain_ms = timing[(8, 1)]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    # least time for one layer launch at bits 8, beam 1: the K|V^T bytes
+    # of the T real positions, q and the output, at the memory rate
+    bound_ms = (W * H * 2 * D * T + 2 * W * H * D * 4) / HBM_BYTES_S * 1e3
+    print(f"[3 kernel A] bound at bits 8 beam 1: {bound_ms:.4f} ms/layer (bytes);"
+          f" kernel at {bound_ms / ms:.0%} of it")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
+
+
+def _viterbi_inputs(r: int, t: int, n: int, seed: int, star_every: int = 0):
+    """Seeded Dirichlet log-probs over 40 columns gathered through seeded
+    labels into ``[r, t, 2n+1]`` state emissions on the card, with the CTC
+    skip rule (every ``star_every``-th label the wildcard column 39)."""
+    import torch
+
+    from whisper_nemo_tpu_torch.ops import ctc
+
+    rng = np.random.default_rng(seed)
+    v = 40
+    em = np.log(rng.dirichlet(np.ones(v), size=(r, t)).astype(np.float32))
+    labels = rng.integers(1, v - 1, size=(r, n))
+    if star_every:
+        labels[:, ::star_every] = v - 1
+    state_labels = np.zeros((r, 2 * n + 1), np.int64)
+    state_labels[:, 1::2] = labels
+    allow = np.zeros((r, 2 * n + 1), bool)
+    allow[:, 3::2] = labels[:, 1:] != labels[:, :-1]
+    dev = torch.device("cuda")
+    e_states = ctc._gather_state_emissions(
+        torch.from_numpy(em).to(dev), torch.from_numpy(state_labels).to(dev))
+    return e_states, torch.from_numpy(allow).to(dev)
+
+
+def viterbi_bound_ms(r: int, t: int, n_states: int) -> tuple:
+    """(least time in ms, what bounds it) for kernel D's work: emissions
+    and skips read once, alpha, backpointers and paths written once, at
+    the memory rate; 5 f32 operations per state and step (two compares,
+    two selects, one add) at the f32 rate."""
+    bytes_ = r * t * n_states * 4 + r * n_states * 5 + r * (t - 1) * n_states + r * t * 4
+    ops = 5.0 * r * (t - 1) * n_states
+    by_bytes, by_ops = bytes_ / HBM_BYTES_S * 1e3, ops / F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def phase_kernel_d(seed: int) -> dict:
+    import torch
+
+    from whisper_nemo_tpu_torch.ops import ctc
+
+    def plain(e, a):
+        alpha, bps = ctc._viterbi_forward_states(e, a)
+        return alpha, bps, ctc._viterbi_backtrack(alpha, bps)
+
+    out = {}
+    # (a) the segmented main bucket (2048, 512): 48 segments of 25 s;
+    # (b) a global forced_align: 5 min at 20 ms frames, 150 wpm of
+    #     5-character words each after a <star>; (c) L = 30001 states,
+    #     whose two alpha buffers exceed the opt-in shared memory
+    for case, (r, t, n, star, reps) in {
+        "a": (48, 2560, 512, 0, 20), "b": (1, 15000, 4600, 6, 5), "c": (2, 1500, 15000, 0, 3),
+    }.items():
+        e, a = _viterbi_inputs(r, t, n, seed + ord(case), star)
+        got = ctc._viterbi_cuda(e, a)
+        want = plain(e, a)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("alpha", "bps", "path")):
+            check(g.dtype == w.dtype and torch.equal(g, w),
+                  f"kernel D case ({case}): {what} differs from the plain version")
+        err = float((got[0] - want[0]).abs().max())
+        ms = cuda_ms(lambda i=0: ctc._viterbi_cuda(e, a), reps)
+        plain_ms = cuda_ms(lambda i=0: plain(e, a), 1)
+        bound_ms, bound_by = viterbi_bound_ms(r, t, 2 * n + 1)
+        print(f"[3b kernel D] ({case}) R={r} T={t} L={2 * n + 1}: alpha, bps, path bit-equal"
+              f" (max|err| {err:g}, bound {BOUND_D:g}) | kernel {ms:.3f} ms"
+              f" ({ms * 1e3 / (t - 1):.2f} us/step), plain {plain_ms:.1f} ms | bound"
+              f" {bound_ms:.4f} ms ({bound_by})")
+        out[case] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None}
+        del e, a, got, want
+    return out
 
 
 def phase_kernel_b(seed: int) -> dict:
+    """Kernel B at the Whisper encoder's shape (bf16 B=32, and f32 B=4)
+    and the wav2vec2 aligner's (bf16 B=8, T=1499); SDPA on the same
+    operands, as ``[B, H, T, D]``, is timed beside each bf16 shape as the
+    yardstick (it never runs on the port's path)."""
     import torch
+    import torch.nn.functional as F
 
     from whisper_nemo_tpu_torch.ops import attention as at
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     out = {}
-    for dtype, b in ((torch.bfloat16, 32), (torch.float32, 4)):
-        B, T, H, D = b, 1500, 16, 64
+    for name, dtype, B, T in (("whisper", torch.bfloat16, 32, 1500), ("whisper", torch.float32, 4, 1500),
+                              ("wav2vec2", torch.bfloat16, 8, 1499)):
+        H, D = 16, 64
         q, k, v = (torch.randn((B, T, H, D), device=dev, generator=g).to(dtype) for _ in range(3))
         got = at._encoder_attention_cuda(q, k, v)
         ref = at._xla_attention(q, k, v)
@@ -186,14 +296,24 @@ def phase_kernel_b(seed: int) -> dict:
         ms = cuda_ms(lambda i=0: at._encoder_attention_cuda(q, k, v), 10)
         plain_ms = cuda_ms(lambda i=0: at._xla_attention(q, k, v), 3)
         flops = 4 * B * H * T * T * D
-        print(
-            f"[4 kernel B] {str(dtype)[6:]} B={B} T={T} H={H} D={D}: max|err| {err:.3e}"
-            f" (bound {BOUND_B:g}) | kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s),"
-            f" plain {plain_ms:.3f} ms"
-        )
-        check(err <= BOUND_B, f"kernel B {dtype}: max|err| {err} > {BOUND_B}")
+        bound_ms = flops / BF16_FLOPS * 1e3
+        sdpa = ""
+        lib_ms = None
         if dtype == torch.bfloat16:
-            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib_ms = cuda_ms(lambda i=0: F.scaled_dot_product_attention(qt, kt, vt), 10)
+            sdpa = f", SDPA {lib_ms:.3f} ms (kernel/SDPA {ms / lib_ms:.2f}x)"
+            del qt, kt, vt
+        print(
+            f"[4 kernel B] {name} {str(dtype)[6:]} B={B} T={T} H={H} D={D}: max|err| {err:.3e}"
+            f" (bound {BOUND_B:g}) | kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s),"
+            f" plain {plain_ms:.3f} ms{sdpa} | bound {bound_ms:.3f} ms (operations at the"
+            f" bf16 peak), kernel at {bound_ms / ms:.0%} of it"
+        )
+        check(err <= BOUND_B, f"kernel B {name} {dtype}: max|err| {err} > {BOUND_B}")
+        if dtype == torch.bfloat16:
+            out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": "operations", "library_ms": lib_ms}
         del q, k, v, got, ref
     return out
 
@@ -295,24 +415,92 @@ def phase_slice_parity(seed: int, devices=("cuda", "cpu")) -> None:
           f" window 0 after 8 tokens: max|err| {logit_err:.4f} (bound {TIE_TOL})")
 
 
+def synthetic_transcript(audio_seconds: int, seg_len_s: int = 25, wpm: int = 150) -> list:
+    """bench.py's stand-in for the ASR text (random weights give unusable
+    text): about ``wpm`` words a minute, one timed segment per
+    ``seg_len_s`` span."""
+    words = ("hello world this is a benchmark transcript " * 250).split()
+    n_words = audio_seconds * wpm // 60
+    transcript = (words * (n_words // len(words) + 1))[:n_words]
+    wps = len(transcript) / audio_seconds
+    return [
+        {"start": float(s), "end": float(min(s + seg_len_s, audio_seconds)),
+         "text": " ".join(transcript[int(s * wps) : int((s + seg_len_s) * wps)])}
+        for s in range(0, audio_seconds, seg_len_s)
+    ]
+
+
+def phase_align_parity(seed: int, devices=("cuda", "cpu")) -> None:
+    """wav2vec2 emissions on the card against the CPU (same f32 weights),
+    then the segmented aligner on both devices fed the CPU's emissions."""
+    import torch
+
+    from whisper_nemo_tpu_torch.align.api import AlignmentModel, AlignmentTokenizer, generate_emissions
+    from whisper_nemo_tpu_torch.align.segmented import align_emissions
+    from whisper_nemo_tpu_torch.engine.checkpoint import to_device
+    from whisper_nemo_tpu_torch.models.wav2vec2 import Wav2Vec2Dims, init_wav2vec2_params
+
+    # the small test dims with the head dim raised to 64, which kernel B takes
+    dims = Wav2Vec2Dims(vocab_size=39, hidden_size=128, num_layers=2, num_heads=2,
+                        intermediate_size=256, conv_dim=(32,) * 7)
+    params = init_wav2vec2_params(dims, "cpu", torch.Generator().manual_seed(seed))
+    audio = speechlike(70.0, seed + 3)
+    tok = AlignmentTokenizer()
+    ems = []
+    for dev in devices:
+        model = AlignmentModel(to_device(params, torch.device(dev)), dims, torch.float32,
+                               torch.device(dev))
+        em, stride = generate_emissions(model, audio, batch_size=2)
+        ems.append(em)
+    check(ems[0].shape == ems[1].shape and bool(np.isfinite(ems[0]).all()),
+          "alignment parity: emissions shape or values")
+    err = float(np.abs(ems[0] - ems[1]).max())
+    check(err <= EMISSIONS_TOL, f"alignment parity: GPU and CPU emissions differ by {err}")
+    segments = synthetic_transcript(70)
+    rows = [align_emissions(ems[1], stride, tok, segments, device=dev) for dev in devices]
+    check(len(rows[0]) == len(rows[1]) == sum(len(s["text"].split()) for s in segments),
+          "alignment parity: word counts")
+    score_err = 0.0
+    for g, c in zip(*rows):
+        check((g["text"], g["start"], g["end"], g["segment"])
+              == (c["text"], c["start"], c["end"], c["segment"]),
+              f"alignment parity: word rows differ: {g} vs {c}")
+        score_err = max(score_err, abs(g["score"] - c["score"]))
+    check(score_err <= 1e-6, f"alignment parity: word scores differ by {score_err}")
+    print(f"[5b align parity] wav2vec2 2 layers width 128 f32, 70 s: emissions {ems[0].shape},"
+          f" GPU vs CPU max|err| {err:.2e} (bound {EMISSIONS_TOL:g}); segmented Viterbi on"
+          f" the CPU's emissions: {len(rows[0])} words, rows equal, scores max|err|"
+          f" {score_err:.1e} (bound 1e-6)")
+
+
 def phase_main_path(seed: int) -> dict:
     import torch
 
+    from whisper_nemo_tpu_torch.align.api import CHUNK_SECONDS, load_alignment_model
+    from whisper_nemo_tpu_torch.align.segmented import align_segments
     from whisper_nemo_tpu_torch.asr import BatchedInferencePipeline, WhisperModel
     from whisper_nemo_tpu_torch.ops import attention as at
     from whisper_nemo_tpu_torch.ops import cross_decode as cd
+    from whisper_nemo_tpu_torch.ops import ctc
 
     t0 = time.time()
     model = WhisperModel("medium.en", device="cuda", compute_type="int8", seed=seed)
     torch.cuda.synchronize()
     setup_s = time.time() - t0
+    t0 = time.time()
+    aligner, align_tok = load_alignment_model("cuda", dtype="bfloat16", seed=seed + 1)
+    torch.cuda.synchronize()
+    align_setup_s = time.time() - t0
     eng = model.engine
     pipeline = BatchedInferencePipeline(model)
-    audio = speechlike(20 * 60.0, seed + 2)
+    audio_seconds = 20 * 60
+    audio = speechlike(float(audio_seconds), seed + 2)
+    timed_segments = synthetic_transcript(audio_seconds)
     L_dec, L_enc = eng.dims.n_text_layer, eng.dims.n_audio_layer
 
     cd.cross_attention_decode_layered.launches = 0
     at.encoder_attention.launches = 0
+    ctc.viterbi_batch.launches = 0
     results = []
     for req in range(2):
         torch.cuda.synchronize()
@@ -323,6 +511,19 @@ def phase_main_path(seed: int) -> dict:
         results.append((time.time() - t1, segments, info, list(eng.last_decode_steps)))
     launches_a = cd.cross_attention_decode_layered.launches
     launches_b = at.encoder_attention.launches
+    # stage 5 of the flow: the ASR segments' words aligned (here on the
+    # synthetic transcript); the warm request records stage times
+    stats = {}
+    aligned = []
+    for req in range(2):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        words = align_segments(aligner, align_tok, audio, timed_segments, language="eng",
+                               batch_size=8, device="cuda", stats=None if req else stats)
+        torch.cuda.synchronize()
+        aligned.append((time.time() - t1, words))
+    launches_b_align = at.encoder_attention.launches - launches_b
+    launches_d = ctc.viterbi_batch.launches
 
     steps = [s for r in results for s in r[3]]
     batches = sum(len(r[3]) for r in results)
@@ -341,6 +542,26 @@ def phase_main_path(seed: int) -> dict:
             check(len(s.tokens) <= 224, f"segment {s.id}: {len(s.tokens)} tokens")
     check([s.tokens for s in results[0][1]] == [s.tokens for s in results[1][1]],
           "the two requests gave different tokens")
+    n_chunks = math.ceil(audio_seconds / CHUNK_SECONDS)
+    emission_batches = math.ceil(n_chunks / 8)
+    groups = stats["groups"]
+    dispatched = sum(len(rows) for rows in groups.values())
+    check(launches_d > 0, "kernel D never launched on the main path")
+    check(launches_b_align == 2 * emission_batches * aligner.dims.num_layers,
+          f"kernel B launched {launches_b_align} times in alignment, expected 2 requests x"
+          f" {emission_batches} batches x {aligner.dims.num_layers} layers")
+    check(launches_d == 2 * dispatched,
+          f"kernel D launched {launches_d} times, expected 2 requests x {dispatched} groups")
+    n_words = sum(len(s["text"].split()) for s in timed_segments)
+    for _, words in aligned:
+        check(len(words) == n_words, f"aligned {len(words)} words of {n_words}")
+        for w in words:
+            check(0.0 <= w["start"] <= w["end"] <= audio_seconds + 1e-6
+                  and 0.0 <= w["score"] <= 1.0 and 0 <= w["segment"] < len(timed_segments),
+                  f"word row out of range: {w}")
+        check([w["start"] for w in words] == sorted(w["start"] for w in words),
+              "word rows out of order")
+    check(aligned[0][1] == aligned[1][1], "the two alignment requests gave different words")
     wall, segs, info, st = results[1]
     print(
         f"[6 main path] medium.en int8 b32 greedy: setup {setup_s:.1f} s | audio"
@@ -351,7 +572,21 @@ def phase_main_path(seed: int) -> dict:
         f" timed request {wall:.2f} s ({wall / info.duration * 3600:.1f} s per audio hour,"
         f" {wall * 1e3 / sum(st):.2f} ms per decode step, whole request)"
     )
-    return {"launches_a": launches_a, "launches_b": launches_b, "engine": eng, "audio": audio}
+    align_wall = aligned[1][0]
+    print(
+        f"[6 main path] alignment, wav2vec2 {aligner.dims.num_layers} layers width"
+        f" {aligner.dims.hidden_size} bf16, batch 8: setup {align_setup_s:.1f} s |"
+        f" {len(timed_segments)} segments, {n_words} words aligned | groups (t_b, l_b): rows"
+        f" per launch {groups} | launches B {launches_b_align} (= 2 x {emission_batches}"
+        f" batches x {aligner.dims.num_layers}), D {launches_d} (= 2 x {dispatched} groups)"
+        f" | warm request {aligned[0][0]:.2f} s (emissions {stats['emissions_s']:.3f} s,"
+        f" items {stats['items_s']:.3f} s, Viterbi {stats['viterbi_s']:.3f} s, post"
+        f" {stats['post_s']:.3f} s, stages synchronised), timed request {align_wall:.2f} s"
+        f" ({align_wall / audio_seconds * 3600:.1f} s per audio hour)"
+    )
+    return {"launches_a": launches_a, "launches_b": launches_b + launches_b_align,
+            "launches_d": launches_d, "engine": eng, "audio": audio, "aligner": aligner,
+            "align_tok": align_tok, "segments": timed_segments}
 
 
 def phase_stage_times(main: dict) -> None:
@@ -396,6 +631,36 @@ def phase_stage_times(main: dict) -> None:
           f" {done_ms:.3f} ms after the first enqueue, per step")
 
 
+def phase_align_stage_times(main: dict, d_case_a: dict) -> None:
+    """The aligner's stages apart, after the main path (these launches are
+    not counted): emissions per batch of 8 chunks (CUDA events), then the
+    Viterbi half on resident emissions with the device synchronised
+    between its stages; kernel D's time per group is phase 3b case (a),
+    the same shape."""
+    import torch
+
+    from whisper_nemo_tpu_torch.align.api import CHUNK_SECONDS, generate_emissions
+    from whisper_nemo_tpu_torch.align.segmented import align_emissions
+    from whisper_nemo_tpu_torch.models.wav2vec2 import ctc_logits
+
+    aligner, audio = main["aligner"], main["audio"]
+    chunk = CHUNK_SECONDS * SR
+    waves = torch.from_numpy(audio[: 8 * chunk].reshape(8, chunk)).cuda()
+    with torch.inference_mode():
+        em_ms = cuda_ms(lambda i=0: torch.log_softmax(
+            ctc_logits(aligner.params, waves, aligner.dims, aligner.dtype), dim=-1), 3)
+        emissions, stride = generate_emissions(aligner, audio, 8, device=True)
+    torch.cuda.synchronize()  # the stages below wait for none of the emissions' work
+    stats = {}
+    align_emissions(emissions, stride, main["align_tok"], main["segments"], device="cuda",
+                    stats=stats)
+    print(f"[6b stages] alignment: emissions {em_ms:.1f} ms per batch of 8 x 30 s (CUDA"
+          f" events) | on resident emissions: items (host text and labels)"
+          f" {stats['items_s'] * 1e3:.1f} ms, Viterbi groups {stats['viterbi_s'] * 1e3:.1f} ms"
+          f" (block build, state gather, kernel D; kernel D alone {d_case_a['ms']:.2f} ms per"
+          f" group of 48), paths to host and words {stats['post_s'] * 1e3:.1f} ms")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -404,10 +669,13 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     a = phase_kernel_a(args.seed)
+    d = phase_kernel_d(args.seed)
     b = phase_kernel_b(args.seed)
     phase_slice_parity(args.seed)
+    phase_align_parity(args.seed)
     main_run = phase_main_path(args.seed)
     phase_stage_times(main_run)
+    phase_align_stage_times(main_run, d["a"])
 
     import torch
 
@@ -419,7 +687,11 @@ def main() -> int:
         {"name": "encoder_attention", "route": "cuda",
          "source": "whisper_nemo_tpu_torch/csrc/encoder_attention.cu",
          "replaces": "whisper_nemo_tpu/ops/attention.py:91",
-         "launches": main_run["launches_b"], **b},
+         "launches": main_run["launches_b"], **b["whisper"]},
+        {"name": "viterbi_batch", "route": "cuda",
+         "source": "whisper_nemo_tpu_torch/csrc/viterbi.cu",
+         "replaces": "whisper_nemo_tpu/ops/viterbi_pallas.py:101",
+         "launches": main_run["launches_d"], **d["a"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

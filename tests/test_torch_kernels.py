@@ -1,4 +1,4 @@
-"""The port's kernel wrappers (kernels A and B), without JAX.
+"""The port's kernel wrappers (kernels A, B and D), without JAX.
 
 On the CPU the wrappers must run the plain versions and count no launch;
 on any other device they launch the kernel or raise. The CUDA cases hold
@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from whisper_nemo_tpu_torch.ops import attention, cross_decode
+from whisper_nemo_tpu_torch.ops import attention, cross_decode, ctc
 
 
 @pytest.fixture
@@ -47,6 +47,41 @@ def test_wrappers_take_the_plain_version_on_cpu():
     assert attention.encoder_attention.launches == 0
 
 
+def _viterbi_case(r, t, n, seed):
+    """``[r, t, 2n+1]`` state emissions (Dirichlet log-probs gathered
+    through random labels, one repeated label) and the CTC skip rule."""
+    rng = np.random.default_rng(seed)
+    e_states, skips = [], []
+    for _ in range(r):
+        em = np.log(rng.dirichlet(np.ones(8), size=t).astype(np.float32))
+        labels = rng.integers(1, 8, size=n)
+        labels[n // 2] = labels[n // 2 - 1]
+        state_labels = np.zeros(2 * n + 1, np.int64)
+        state_labels[1::2] = labels
+        allow = np.zeros(2 * n + 1, bool)
+        allow[3::2] = labels[1:] != labels[:-1]
+        e_states.append(em[:, state_labels])
+        skips.append(allow)
+    return (torch.from_numpy(np.ascontiguousarray(np.stack(e_states))),
+            torch.from_numpy(np.stack(skips)))
+
+
+def test_viterbi_takes_the_plain_version_on_cpu():
+    """Kernel D's wrapper on CPU tensors: the plain sweep and backtrack,
+    no launch counted."""
+    ctc.viterbi_batch.launches = 0
+    e_states, skips = _viterbi_case(2, 30, 4, 1)
+    alpha, bps, path = ctc.viterbi_batch(e_states, skips)
+    want_alpha, want_bps = ctc._viterbi_forward_states(e_states, skips)
+    torch.testing.assert_close(alpha, want_alpha, rtol=0, atol=0)
+    assert torch.equal(bps, want_bps)
+    assert torch.equal(path, ctc._viterbi_backtrack(want_alpha, want_bps))
+    # a path moves up by at most two states a step, from state 0 or 1
+    steps = path[:, 1:] - path[:, :-1]
+    assert bool(((steps >= 0) & (steps <= 2)).all()) and bool((path[:, 0] <= 1).all())
+    assert ctc.viterbi_batch.launches == 0
+
+
 def test_wrappers_raise_off_the_cpu_without_cuda():
     """A tensor that is neither on the CPU nor on a CUDA device (here
     PyTorch's shape-only "meta" device) is refused before any build or
@@ -60,6 +95,9 @@ def test_wrappers_raise_off_the_cpu_without_cuda():
     x = torch.empty((2, 100, 2, 64), dtype=torch.bfloat16, device=meta)
     with pytest.raises(ValueError, match="CUDA device"):
         attention.encoder_attention(x, x, x)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ctc.viterbi_batch(torch.empty((2, 10, 5), device=meta),
+                          torch.empty((2, 5), dtype=torch.bool, device=meta))
 
 
 @pytest.mark.cuda
@@ -83,3 +121,22 @@ def test_kernels_match_plain_on_cuda(cuda_device, bits):
     got = attention._encoder_attention_cuda(q, k, v)
     torch.testing.assert_close(got.float(), attention._xla_attention(q, k, v).float(),
                                atol=1e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,t,n", [(3, 300, 20), (2, 1, 3), (1, 40, 15000)])
+def test_viterbi_kernel_matches_plain_on_cuda(cuda_device, r, t, n):
+    """Kernel D against its plain version on the card, bit for bit:
+    rows of different content, a single frame, and L = 30001 states,
+    whose alpha buffers exceed shared memory and live in the global
+    scratch (chip_smoke.py checks the main path's shapes)."""
+    e_states, skips = _viterbi_case(r, t, n, 3)
+    e_states, skips = e_states.to(cuda_device), skips.to(cuda_device)
+    launches = ctc.viterbi_batch.launches
+    got = ctc.viterbi_batch(e_states, skips)
+    want_alpha, want_bps = ctc._viterbi_forward_states(e_states, skips)
+    want = (want_alpha, want_bps, ctc._viterbi_backtrack(want_alpha, want_bps))
+    torch.cuda.synchronize()
+    assert ctc.viterbi_batch.launches == launches + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)

@@ -179,6 +179,8 @@ def test_port_imports_no_jax():
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "whisper_nemo_tpu_torch").rglob("*.py")
     )
+    assert {"whisper_nemo_tpu_torch.align.segmented", "whisper_nemo_tpu_torch.ops.ctc",
+            "whisper_nemo_tpu_torch.models.wav2vec2"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
@@ -201,12 +203,17 @@ def test_port_sources_name_no_jax():
     assert offenders == []
 
 
-@pytest.mark.parametrize("name", ["text/tokenizer.py", "text/languages.py", "vad/binarize.py"])
+@pytest.mark.parametrize("name", [
+    "text/tokenizer.py", "text/languages.py", "vad/binarize.py", "align/text.py",
+    "align/uroman.py", "align/uroman_ext.py", "align/pinyin_data.py",
+])
 def test_carried_copies_match_the_jax_package(name):
     """The jax-free host modules the port carries are the JAX package's,
-    apart from the note that says they are copies."""
+    apart from the note that says they are copies and the local checkout
+    path of a reference file a docstring names."""
     ours = (REPO / "whisper_nemo_tpu_torch" / name).read_text()
-    theirs = (REPO / "whisper_nemo_tpu" / name).read_text()
+    theirs = re.sub(r"\n/\w+/reference/", "\nreference ",
+                    (REPO / "whisper_nemo_tpu" / name).read_text())
     note = re.compile(r"\nA copy of ``whisper_nemo_tpu/[^`]+``, carried so that the\n"
                       r"port imports nothing of the JAX package\.\n\n")
     assert note.sub("\n", ours, count=1) == theirs

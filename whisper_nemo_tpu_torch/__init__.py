@@ -4,13 +4,15 @@ It mirrors the JAX package's layout (``ops/cross_decode.py`` beside
 ``whisper_nemo_tpu/ops/cross_decode.py``, and so on) and is held against
 it in ``tests/test_torch_*.py``. It imports ``torch`` and nothing of JAX
 or of the JAX package; the few jax-free host modules it needs
-(``text/``, ``vad/binarize.py``) are carried as copies.
+(``text/``, ``vad/binarize.py``, the host text modules of ``align/``) are
+carried as copies.
 
-What runs: batched greedy Whisper ASR (``asr.faster_whisper_api``), with
-two hand-written CUDA kernels for Hopper built from ``csrc/`` at first
-use (``ops/_build.py``): decode-step cross-attention
-(``ops/cross_decode.py``) and encoder self-attention
-(``ops/attention.py``).
+What runs: batched greedy Whisper ASR (``asr.faster_whisper_api``) and
+word alignment of its segments (``align``: wav2vec2 emissions, batched
+CTC Viterbi), with three hand-written CUDA kernels for Hopper built from
+``csrc/`` at first use (``ops/_build.py``): decode-step cross-attention
+(``ops/cross_decode.py``), encoder self-attention (``ops/attention.py``)
+and the batched Viterbi (``ops/ctc.py``).
 """
 
 __version__ = "0.1.0"

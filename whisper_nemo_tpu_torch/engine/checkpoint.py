@@ -4,7 +4,9 @@ Counterpart of ``whisper_nemo_tpu/engine/checkpoint.py``. Checkpoints are
 the JAX package's flat ``.npz`` files (path-joined keys); both packages
 read the same files. :func:`params_from_jax` turns the JAX nested tree
 into the port's: the same dict, tensors instead of arrays, conv weights
-from ``[k, in, out]`` to PyTorch's ``[out, in, k]``.
+from ``[k, in, out]`` to PyTorch's ``[out, in, k]`` (Whisper's and the
+wav2vec2 aligner's, whose grouped positional conv goes from
+``[k, in/groups, out]`` to ``[out, in/groups, k]``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from ..models.wav2vec2 import Wav2Vec2Dims, init_wav2vec2_params
 from ..models.whisper import WHISPER_DIMS, WhisperDims, init_whisper_params
 
 logger = logging.getLogger(__name__)
@@ -60,14 +63,35 @@ def _to_tensors(tree: Any, device) -> Any:
 def params_from_jax(tree: Any, device="cpu") -> Any:
     """JAX param tree (nested dicts/lists of numpy-convertible arrays) ->
     the port's tree of tensors on ``device``. Conv weights go from WIO
-    ``[k, in, out]`` to OIW ``[out, in, k]``; everything else keeps its
-    layout and dtype."""
+    ``[k, in, out]`` to OIW ``[out, in, k]`` (Whisper's two convs, the
+    wav2vec2 feature extractor's and its grouped positional conv);
+    everything else keeps its layout and dtype."""
     params = _to_tensors(tree, device)
-    enc = params.get("encoder", {})
-    for name in _CONV_KEYS:
-        if name in enc:
-            enc[name]["w"] = enc[name]["w"].permute(2, 1, 0).contiguous()
+    convs = [params.get("encoder", {}).get(name) for name in _CONV_KEYS]
+    if "fe" in params:  # wav2vec2
+        convs += params["fe"]["conv_layers"] + [params["enc"]["pos_conv"]]
+    for conv in convs:
+        if conv is not None:
+            conv["w"] = conv["w"].permute(2, 1, 0).contiguous()
     return params
+
+
+def to_device(tree: Any, device) -> Any:
+    """The same tree with every tensor on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def cast_floats(tree: Any, dtype) -> Any:
+    """The same tree with every floating-point tensor in ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_floats(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 def load_params(path: str, device) -> Any:
@@ -113,3 +137,22 @@ def resolve_model(
         model_cache_dir(),
     )
     return init_whisper_params(dims, device, generator), dims
+
+
+def resolve_aligner(
+    dims: Wav2Vec2Dims, device, generator: torch.Generator
+) -> Any:
+    """The alignment model's f32 params on ``device``:
+    ``<cache>/ctc_aligner.npz``, else a seeded random initialization on
+    ``device`` from ``generator`` (logged loudly)."""
+    ckpt = os.path.join(model_cache_dir(), "ctc_aligner.npz")
+    if os.path.exists(ckpt):
+        logger.info("loading the aligner from %s", ckpt)
+        return load_params(ckpt, device)
+    logger.warning(
+        "no aligner checkpoint at %s; using seeded random initialization —"
+        " word timestamps will be meaningless until converted weights are"
+        " installed",
+        ckpt,
+    )
+    return init_wav2vec2_params(dims, device, generator)

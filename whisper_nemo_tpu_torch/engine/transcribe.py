@@ -23,7 +23,7 @@ from ..models.whisper_stacked import stack_decoder_blocks
 from ..ops.mel import HOP_LENGTH, N_SAMPLES, SAMPLE_RATE, log_mel_spectrogram_batch
 from ..text.tokenizer import WhisperTokenizer, get_suppressed_tokens
 from ..vad.energy import get_speech_timestamps
-from .checkpoint import model_cache_dir, resolve_model
+from .checkpoint import cast_floats, model_cache_dir, resolve_model, to_device
 from .decode import DecodeOptions, build_suppress_mask, greedy_decode
 from .quantize import quantize_whisper_params
 
@@ -77,16 +77,17 @@ class WhisperEngine:
         self,
         model_name: str = "tiny",
         compute_type: str = "int8",
-        device="cpu",
+        device="cuda",
         params=None,
         dims: Optional[WhisperDims] = None,
         tokenizer: Optional[WhisperTokenizer] = None,
         kv_bits: int = 8,
         seed: int = 0,
     ):
-        """``params`` (the port's tree, f32) and ``dims`` skip resolution by
-        name; otherwise a checkpoint is looked up, and missing that, the
-        model is initialized from ``seed`` on ``device``."""
+        """``device`` is explicit ("cuda", "cuda:N" or "cpu"). ``params``
+        (the port's tree, f32) and ``dims`` skip resolution by name;
+        otherwise a checkpoint is looked up, and missing that, the model
+        is initialized from ``seed`` on ``device``."""
         if compute_type not in _COMPUTE_DTYPES:
             raise NotImplementedError(
                 f"compute_type {compute_type!r} (float cross-attention KV) is "
@@ -98,11 +99,11 @@ class WhisperEngine:
         if params is None or dims is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params, dims = resolve_model(model_name, self.device, gen)
-        params = _to_device(params, self.device)
+        params = to_device(params, self.device)
         if compute_type == "int8":
             params = quantize_whisper_params(params)
         else:
-            params = _cast_floats(params, torch.bfloat16)
+            params = cast_floats(params, torch.bfloat16)
         # the encoder reads the per-layer blocks; the decoder loop reads
         # the layer-stacked tree (models.whisper_stacked)
         self.params = stack_decoder_blocks(params)
@@ -233,22 +234,6 @@ class WhisperEngine:
             duration_after_vad=duration_after_vad,
         )
         return segments, info
-
-
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)
-
-
-def _cast_floats(tree, dtype):
-    if isinstance(tree, dict):
-        return {k: _cast_floats(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_cast_floats(v, dtype) for v in tree]
-    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 def _find_tokenizer(model_name: str, dims: WhisperDims, multilingual: bool):

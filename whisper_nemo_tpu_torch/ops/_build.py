@@ -27,7 +27,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: Dict[str, threading.Lock] = {}  # one per kernel: builds run in parallel
 _libs: Dict[str, ctypes.CDLL] = {}
 # compiler output per kernel built by this process (ptxas registers,
 # shared memory and spills)
@@ -68,8 +69,11 @@ def _build(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The shared library of ``csrc/<name>.cu``, built if needed."""
+    """The shared library of ``csrc/<name>.cu``, built if needed. Loads of
+    different kernels may run in parallel threads."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(_build(name)))

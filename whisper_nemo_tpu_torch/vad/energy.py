@@ -24,11 +24,13 @@ def frame_energy_probs(
     audio: np.ndarray,
     frame_shift: float = 0.02,
     frame_length: float = 0.04,
-    device="cpu",
+    *,
+    device,
     wave: Optional[torch.Tensor] = None,
 ) -> np.ndarray:
-    """Pseudo speech probabilities in [0, 1] from log-RMS energy.
-    ``wave``, when given, is ``audio`` already on ``device``."""
+    """Pseudo speech probabilities in [0, 1] from log-RMS energy. Long
+    recordings take their frame energies on ``device``, which the caller
+    names; ``wave``, when given, is ``audio`` already on it."""
     hop = int(frame_shift * SAMPLE_RATE)
     win = int(frame_length * SAMPLE_RATE)
     if len(audio) < win:
@@ -65,7 +67,8 @@ def get_speech_timestamps(
     min_duration_off: float = 0.3,
     pad: float = 0.1,
     frame_shift: float = 0.02,
-    device="cpu",
+    *,
+    device,
     wave: Optional[torch.Tensor] = None,
 ) -> List[dict]:
     """Speech spans as ``[{"start": s0, "end": s1}, ...]`` in samples."""
