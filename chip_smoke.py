@@ -12,22 +12,34 @@ Phases, one line each:
   3b. kernel D (batched CTC Viterbi) against its plain version, bit for
      bit: the segmented aligner's main bucket, a global forced_align of
      5 minutes of speech, and a trellis whose alpha exceeds shared memory;
+  3c. kernel E (beam-ancestry self-attention) against its plain version
+     on the beam-5 decode cache of medium.en at batch 32, at positions 2,
+     127 and 225 with a shared mask, and at 127 with one mask row per
+     beam row;
+  3d. kernel F (beam cache permute) against its plain versions, bit for
+     bit, out of place and in place, on the same cache, with
+     index_select timed beside it as a yardstick;
+  3e. the bound of the TPU kernel C (single-window mel), which is not
+     ported yet, reckoned from its shapes;
   4. kernel B (encoder attention) against its plain version at the
      medium.en encoder shape and the wav2vec2 aligner's, with SDPA timed
      beside it as a yardstick;
   5. slice parity: the batched pipeline at small dims on the GPU (the
-     kernels) against the same pipeline on the CPU (the plain versions);
+     kernels) against the same pipeline on the CPU (the plain versions),
+     greedy and at beam 5;
   5b. alignment parity: wav2vec2 emissions at small dims on the GPU
      against the CPU, then the segmented aligner on both fed the same
      emissions;
   6. the main path, as the CLI flow runs it: WhisperModel("medium.en",
      compute_type="int8") and BatchedInferencePipeline.transcribe(
-     batch_size=32, beam_size=1) on two requests of 20 minutes of
-     synthetic speech, then align_segments with the full-width
-     (MMS-300M-sized) aligner in bf16 on a synthetic 150 wpm transcript,
-     warm and timed; the kernels' launch counts are checked against the
-     decode steps, encoder batches, emission batches and Viterbi groups;
-  6b. stage times of both stages, measured apart;
+     batch_size=32) at its default beam 5 on two requests of 20 minutes
+     of synthetic speech (warm and timed), one greedy request (beam_size=1,
+     bench.py's), then align_segments with the full-width (MMS-300M-sized)
+     aligner in bf16 on a synthetic 150 wpm transcript, warm and timed;
+     the kernels' launch counts are checked against the decode steps,
+     encoder batches, emission batches and Viterbi groups of each;
+  6b. stage times of both stages, measured apart, and the beam step's
+     parts;
   7. the card's name and power limit, the kernels' JSON line, and last
      {"ok": true, "device": {...}}.
 Any phase that fails raises, and the script exits non-zero without the
@@ -52,6 +64,11 @@ SR = 16000
 BOUND_A = 5e-3  # |kernel - plain|: outputs are O(1); f32 sums in another order
 BOUND_B = 1e-2  # bf16 P in the PV product vs bf16 normalized weights; bf16 output
 BOUND_D = 0.0  # one f32 add per state and step and an exact max: bit-equal
+# Kernel E against its plain version: both round the output to bf16 once
+# and sum in f32, in another order; a weight near a bf16 rounding boundary
+# may round the other way. Outputs are of order 1.
+BOUND_E = (1e-2, 1e-2)  # |kernel - plain| <= atol + rtol * |plain|
+BOUND_F = 0.0  # a copy: bit-equal
 # Phase 5b, f32 emissions of a 2-layer wav2vec2 (log-probs of order 1-10):
 # kernel B rounds its f32 operands to bf16 for the tensor cores (2^-8
 # relative), and the conv stack and linears sum in another order
@@ -62,8 +79,18 @@ HBM_BYTES_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # Phase 5, logits: the GPU slice (kernels, cuBLAS) and the CPU slice
 # (plain versions) round bf16 products in other orders; on the CPU the
 # port's int8 step logits agree with the JAX package's to 0.02
-# (tests/test_torch_whisper.py), and kernel B adds its bf16 P.
+# (tests/test_torch_whisper.py), and kernel B adds its bf16 P. At beam 5
+# the CPU rescores each GPU hypothesis, teacher-forced: the GPU's mean
+# log-probability per token must agree with it to SCORE_TOL (at these
+# dims the CPU's own beam decode is at most 1.05e-3 from its rescoring;
+# a decode that ignores the ancestry map, or drops a lane's own position
+# from it, misses by 5e-2 or more), and the CPU's best may lead it by
+# less than TIE_TOL.
 TIE_TOL = 0.05
+SCORE_TOL = 5e-3
+# The main path's beam decode: medium.en's decoder at batch 32, beam 5,
+# cache of 256 positions (224 new tokens after the prompt)
+L_DEC, WINDOWS, BEAM, HEADS, HEAD_DIM, CACHE_LEN = 24, 32, 5, 16, 64, 256
 
 
 class SmokeFailure(RuntimeError):
@@ -106,6 +133,39 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled_device_ms(fn, reps: int) -> dict:
+    """Device ms per call of each kernel, by name, from a torch.profiler
+    trace of ``reps`` calls: the device-side events only (an operator's
+    event repeats the time of the kernels it launched). Empty where the
+    profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(i)
+        torch.cuda.synchronize()
+    return {ev.key: ev.self_device_time_total / 1e3 / reps for ev in prof.key_averages()
+            if ev.device_type != DeviceType.CPU and ev.self_device_time_total > 0}
+
+
+def fmt_profile(kernels: dict) -> str:
+    """Total device ms per step, kernels A and E, and the six largest."""
+    if not kernels:
+        return "device time not measured (the profiler saw no device activity)"
+    share = {k: sum(ms for name, ms in kernels.items() if f"{k}_kernel" in name)
+             for k in ("cross_decode", "self_decode")}
+    top = sorted(kernels.items(), key=lambda kv: kv[1], reverse=True)[:6]
+    short = [(name.replace("void ", "").replace("(anonymous namespace)::", "")
+              .replace("at::native::", "")[:70], ms) for name, ms in top]
+    return (f"device time {sum(kernels.values()):.3f} ms per step (kernel A"
+            f" {share['cross_decode']:.3f}, kernel E {share['self_decode']:.3f}), largest: "
+            + "; ".join(f"{name} {ms:.3f}" for name, ms in short))
+
+
 def phase_device():
     import torch
 
@@ -139,7 +199,7 @@ def phase_build():
 
     t0 = time.time()
     names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
-    check(names == ["cross_decode", "encoder_attention", "viterbi"],
+    check(names == ["beam_permute", "cross_decode", "encoder_attention", "self_decode", "viterbi"],
           f"unexpected kernel sources {names}")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.load, names))
@@ -162,7 +222,7 @@ def phase_kernel_a(seed: int) -> dict:
     kp = T + (-T % 128)
     k_scale = torch.full((H, D), 0.03, device=dev)
     v_scale = torch.full((H, D), 1.0 / 127, device=dev)
-    worst, timing = 0.0, {}
+    timing = {}
     for bits in (8, 4):
         rows = 2 * D if bits == 8 else D
         kv = torch.randint(-127, 128, (L, W, H, rows, kp), device=dev, generator=g,
@@ -185,17 +245,38 @@ def phase_kernel_a(seed: int) -> dict:
                 f" | {W * H * rows * kp / ms / 1e6:.0f} GB/s of KV"
             )
             check(err <= BOUND_A, f"kernel A bits {bits} beam {beam}: max|err| {err} > {BOUND_A}")
-            worst = max(worst, err)
-            timing[(bits, beam)] = (ms, plain_ms)
+            timing[(bits, beam)] = (err, ms, plain_ms)
         del kv
-    ms, plain_ms = timing[(8, 1)]
-    # least time for one layer launch at bits 8, beam 1: the K|V^T bytes
-    # of the T real positions, q and the output, at the memory rate
-    bound_ms = (W * H * 2 * D * T + 2 * W * H * D * 4) / HBM_BYTES_S * 1e3
-    print(f"[3 kernel A] bound at bits 8 beam 1: {bound_ms:.4f} ms/layer (bytes);"
-          f" kernel at {bound_ms / ms:.0%} of it")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None}
+    out = {}
+    for (bits, beam), (err, ms, plain_ms) in timing.items():
+        # least time for one layer launch: the K|V^T bytes of the T real
+        # positions (read once for all beam lanes; bits 4 packs two values
+        # a byte), q and the output, at the memory rate
+        rows = 2 * D if bits == 8 else D
+        bound_ms = (W * H * rows * T + 2 * W * beam * H * D * 4) / HBM_BYTES_S * 1e3
+        print(f"[3 kernel A] bound at bits {bits} beam {beam}: {bound_ms:.4f} ms/layer (bytes);"
+              f" kernel at {bound_ms / ms:.0%} of it")
+        if bits == 8:
+            out[beam] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+    return out
+
+
+def kernel_c_bound() -> None:
+    """The least time of the TPU kernel C's work (``ops/mel.py``
+    ``_log_mel_pallas``, not ported yet) for one 30 s window: frames
+    ``[3000, 400]`` f32 times the Hann-windowed cosine and sine bases
+    ``[400, 201]``, re^2 + im^2, times the mel bank ``[201, 80]``, log10.
+    Its products are f32 (the port keeps TF32 off), so the operations
+    are taken at the f32 rate outside the tensor cores."""
+    frames, n_fft, bins, mels = 3000, 400, 201, 80
+    ops = 2 * 2 * frames * n_fft * bins + 3 * frames * bins + 2 * frames * bins * mels \
+        + frames * mels
+    bytes_ = 4 * (frames * n_fft + 2 * n_fft * bins + bins * mels + frames * mels)
+    by_ops, by_bytes = ops / F32_FLOPS * 1e3, bytes_ / HBM_BYTES_S * 1e3
+    print(f"[3e kernel C, not ported] bound per 30 s window: {ops / 1e9:.3f} GFLOP f32 at"
+          f" {F32_FLOPS / 1e12:.0f} TFLOP/s = {by_ops:.4f} ms (operations); {bytes_ / 1e6:.2f} MB"
+          f" at {HBM_BYTES_S / 1e12:.2f} TB/s = {by_bytes:.4f} ms")
 
 
 def _viterbi_inputs(r: int, t: int, n: int, seed: int, star_every: int = 0):
@@ -271,6 +352,132 @@ def phase_kernel_d(seed: int) -> dict:
     return out
 
 
+def _beam_cache(seed: int):
+    """The beam decode's self-attention cache at the main path's shape,
+    ``[24, 160, 16, 64, 256]`` bf16 for K and for V (4.0 GB), seeded."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (L_DEC, WINDOWS * BEAM, HEADS, HEAD_DIM, CACHE_LEN)
+    return g, [torch.randn(shape, device=dev, generator=g, dtype=torch.bfloat16) for _ in range(2)]
+
+
+def phase_kernel_e(seed: int) -> dict:
+    """Kernel E at medium.en's beam-5 decode shape with a random ancestry
+    map, at three positions with the decode step's shared mask and at one
+    with a mask row per beam row. The bound counts the visible K and V of
+    every row, q, the output, anc and the mask, each once."""
+    import torch
+
+    from whisper_nemo_tpu_torch.ops import attention as at
+    from whisper_nemo_tpu_torch.ops import self_decode as sd
+
+    g, (k, v) = _beam_cache(seed + 2)
+    dev, bk = k.device, WINDOWS * BEAM
+    q = torch.randn((bk, 1, HEADS, HEAD_DIM), device=dev, generator=g, dtype=torch.bfloat16)
+    anc = torch.randint(0, BEAM, (WINDOWS, BEAM, CACHE_LEN), device=dev, generator=g,
+                        dtype=torch.int32)
+    atol, rtol = BOUND_E
+    out = {}
+    for pos, per_row in ((2, False), (127, False), (225, False), (127, True)):
+        n_vis = pos + 1
+        visible = torch.arange(CACHE_LEN, device=dev) < n_vis
+        if per_row:
+            keep = torch.rand((bk, CACHE_LEN), device=dev, generator=g) > 0.2
+            keep[:, 0] = True
+            mask = torch.where(keep & visible, 0.0, float("-inf"))[:, None, None, :].contiguous()
+        else:
+            mask = torch.where(visible, 0.0, float("-inf"))[None, None, None, :]
+        err = excess = 0.0
+        for layer in (0, L_DEC - 1):
+            got = sd._self_decode_cuda(q, k, v, anc, mask, layer, BEAM, n_vis).float()
+            ref = at.attention_kt_ancestry(q, k[layer], v[layer], anc, mask).float()
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), "kernel E gave non-finite values")
+            diff = (got - ref).abs()
+            err = max(err, float(diff.max()))
+            excess = max(excess, float((diff - rtol * ref.abs()).max()))
+        ms = cuda_ms(lambda i=0: sd._self_decode_cuda(q, k, v, anc, mask, i % L_DEC, BEAM, n_vis), 48)
+        plain_ms = cuda_ms(lambda i=0: at.attention_kt_ancestry(
+            q, k[i % L_DEC], v[i % L_DEC], anc, mask), 6)
+        kv_bytes = 2 * bk * HEADS * HEAD_DIM * n_vis * 2
+        bytes_ = kv_bytes + 2 * q.numel() * 2 + anc.numel() // CACHE_LEN * n_vis * 4 \
+            + mask.numel() // CACHE_LEN * n_vis * 4
+        by_bytes = bytes_ / HBM_BYTES_S * 1e3
+        by_ops = 4.0 * bk * HEADS * HEAD_DIM * n_vis / F32_FLOPS * 1e3
+        bound_ms, bound_by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+        case = f"pos {pos}, {'one mask row per beam row' if per_row else 'shared mask'}"
+        print(f"[3c kernel E] B·K={bk} H={HEADS} D={HEAD_DIM} S={CACHE_LEN} {case}: max|err|"
+              f" {err:.3e} (bound {atol:g} + {rtol:g}·|plain|) | kernel {ms:.4f} ms/layer"
+              f" ({kv_bytes / ms / 1e6:.0f} GB/s of visible K/V), plain {plain_ms:.4f} ms/layer"
+              f" | bound {bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / ms:.0%} of it")
+        check(excess <= atol, f"kernel E at {case}: |err| exceeds {atol} + {rtol}·|plain| by"
+              f" {excess - atol:.3e}")
+        out[(pos, per_row)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    del k, v
+    return out
+
+
+def phase_kernel_f(seed: int) -> dict:
+    """Kernel F on the same cache shape: out of place (index_select on
+    the row axis timed beside it) and in place within windows, bit for
+    bit against the plain versions. The bound reads and writes K and V
+    once."""
+    import torch
+
+    from whisper_nemo_tpu_torch.ops import beam_permute as bp
+
+    g, (k, v) = _beam_cache(seed + 3)
+    dev = k.device
+    src = torch.randint(0, BEAM, (WINDOWS, BEAM), device=dev, generator=g)
+    src[0] = 0  # repeats
+    idx = bp._window_rows(src, BEAM)
+
+    def max_err(got, want):
+        return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+
+    got = bp.beam_permute_cache(k, v, idx)
+    want = bp._beam_permute_plain(k, v, idx)
+    torch.cuda.synchronize()
+    err = {"out of place": max_err(got, want)}
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "kernel F out of place differs from the plain version")
+    del got
+    kk, vv = k.clone(), v.clone()
+    bp.beam_permute_cache_inplace(kk, vv, src, BEAM)
+    want = bp._beam_permute_inplace_plain(k.clone(), v.clone(), src, BEAM)
+    torch.cuda.synchronize()
+    err["in place"] = max_err((kk, vv), want)
+    check(torch.equal(kk, want[0]) and torch.equal(vv, want[1]),
+          "kernel F in place differs from the plain version")
+    del want
+    moved = 2 * (k.numel() + v.numel()) * k.element_size()
+    bound_ms = moved / HBM_BYTES_S * 1e3
+    out = {}
+    for name, fn, plain, lib in (
+        ("out of place", lambda i=0: bp.beam_permute_cache(k, v, idx),
+         lambda i=0: bp._beam_permute_plain(k, v, idx),
+         lambda i=0: (k.index_select(1, idx), v.index_select(1, idx))),
+        ("in place", lambda i=0: bp.beam_permute_cache_inplace(kk, vv, src, BEAM),
+         lambda i=0: bp._beam_permute_inplace_plain(kk, vv, src, BEAM), None),
+    ):
+        ms = cuda_ms(fn, 5)
+        plain_ms = cuda_ms(plain, 3)
+        lib_ms = cuda_ms(lib, 3) if lib else None
+        yard = f", index_select {lib_ms:.3f} ms" if lib else ""
+        print(f"[3d kernel F] {name}, K and V {tuple(k.shape)} bf16 ({moved / 2e9:.2f} GB each"
+              f" way): bit-equal (max|err| {err[name]:g}, bound {BOUND_F:g}) | kernel {ms:.3f} ms"
+              f" ({moved / ms / 1e6:.0f} GB/s), plain {plain_ms:.3f} ms{yard} | bound"
+              f" {bound_ms:.3f} ms (bytes), kernel at {bound_ms / ms:.0%} of it")
+        out[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "library_ms": lib_ms}
+    del k, v, kk, vv
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernel_b(seed: int) -> dict:
     """Kernel B at the Whisper encoder's shape (bf16 B=32, and f32 B=4)
     and the wav2vec2 aligner's (bf16 B=8, T=1499); SDPA on the same
@@ -318,10 +525,11 @@ def phase_kernel_b(seed: int) -> dict:
     return out
 
 
-def _step_logits(engine, audio, windows, row, prompt, generated, suppress_mask):
-    """Filtered f32 logits of window ``windows[row]`` after ``generated``
-    tokens, teacher-forced through the port's prefill with the window's
-    whole batch (the cross-KV scales are taken over the batch)."""
+def _forced_logits(engine, audio, windows, hyps, prompt, suppress_mask):
+    """Filtered f32 logits ``[len(windows), n, V]`` of each window's
+    hypothesis ``hyps[i]`` (generated tokens), teacher-forced through the
+    port's prefill with the windows' whole batch (the cross-KV scales are
+    taken over the batch): row ``t`` predicts generated token ``t``."""
     import torch
 
     from whisper_nemo_tpu_torch.models.whisper import _vocab_logits
@@ -333,23 +541,47 @@ def _step_logits(engine, audio, windows, row, prompt, generated, suppress_mask):
     from whisper_nemo_tpu_torch.ops import mel
 
     p, dims, dev = engine.params, engine.dims, engine.device
+    opts = engine._make_opts()
     waves = torch.zeros((len(windows), mel.N_SAMPLES), device=dev)
     for i, (s, e) in enumerate(windows):
         n = min(e - s, mel.N_SAMPLES)
         waves[i, :n] = torch.from_numpy(audio[s : s + n]).to(dev)
+    n = len(prompt) + max(len(h) for h in hyps)
     with torch.inference_mode():
         feats = engine.encode_windows(mel.log_mel_spectrogram_batch(waves, dims.n_mels))
         ckv = cross_kv_decode_layout_fused(p, feats, dims, bits=engine.kv_bits)
-        prefix = torch.tensor([prompt + generated], device=dev).repeat(len(windows), 1)
+        tokens = torch.tensor([(prompt + list(h) + [opts.eot] * n)[:n] for h in hyps], device=dev)
         cache = init_stacked_cache(len(windows), dims, engine.dtype, 128, dev)
-        x, _ = prefill_cache_stacked(p, prefix, cache, ckv, dims, engine.dtype)
-        opts = engine._make_opts()
-        logits = _vocab_logits(p["decoder"], x[row, -1]) + suppress_mask.to(dev)
-        logits[opts.timestamp_begin:] = float("-inf")
-        logits[opts.no_timestamps] = float("-inf")
-        if not generated:
-            logits[opts.blank_token] = logits[opts.eot] = float("-inf")
+        x, _ = prefill_cache_stacked(p, tokens, cache, ckv, dims, engine.dtype)
+        logits = _vocab_logits(p["decoder"], x[:, len(prompt) - 1 :]) + suppress_mask.to(dev)
+        logits[..., opts.timestamp_begin:] = float("-inf")
+        logits[..., opts.no_timestamps] = float("-inf")
+        logits[:, 0, [opts.blank_token, opts.eot]] = float("-inf")
     return logits
+
+
+def _step_logits(engine, audio, windows, row, prompt, generated, suppress_mask):
+    """Filtered f32 logits of window ``windows[row]`` after ``generated``
+    tokens, teacher-forced with the window's whole batch."""
+    hyps = [generated] * len(windows)
+    return _forced_logits(engine, audio, windows, hyps, prompt, suppress_mask)[row, -1]
+
+
+def _rescore(engine, audio, windows, hyps, prompt, suppress_mask, max_new):
+    """The sum of filtered f32 log-probabilities of each window's
+    hypothesis (its generated tokens, then EOT unless it ran to
+    ``max_new``), teacher-forced: the score beam search gives it."""
+    import torch
+
+    eot = engine._make_opts().eot
+    logprobs = torch.log_softmax(
+        _forced_logits(engine, audio, windows, hyps, prompt, suppress_mask), dim=-1)
+    scores = []
+    for row, h in enumerate(hyps):
+        target = list(h) + [eot] if len(h) < max_new else list(h)
+        idx = torch.arange(len(target), device=logprobs.device)
+        scores.append(float(logprobs[row, idx, torch.tensor(target, device=logprobs.device)].sum()))
+    return scores
 
 
 def first_difference(a, b, eot):
@@ -359,7 +591,7 @@ def first_difference(a, b, eot):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
-def phase_slice_parity(seed: int, devices=("cuda", "cpu")) -> None:
+def phase_slice_parity(seed: int, devices=("cuda", "cpu"), beam_size: int = 1) -> None:
     import torch
 
     from whisper_nemo_tpu_torch.engine.decode import build_suppress_mask
@@ -374,7 +606,7 @@ def phase_slice_parity(seed: int, devices=("cuda", "cpu")) -> None:
     runs = []
     for dev in devices:
         eng = WhisperEngine("tiny.en", "int8", device=dev, params=params, dims=dims, tokenizer=tok)
-        segs, _ = eng.transcribe_batched(audio, language="en", batch_size=2)
+        segs, _ = eng.transcribe_batched(audio, language="en", batch_size=2, beam_size=beam_size)
         runs.append((eng, segs))
     (gpu, gsegs), (cpu, csegs) = runs
     check([(s.start, s.end) for s in gsegs] == [(s.start, s.end) for s in csegs],
@@ -388,12 +620,42 @@ def phase_slice_parity(seed: int, devices=("cuda", "cpu")) -> None:
              for eng in (gpu, cpu)]
     logit_err = float((first[0].cpu() - first[1]).abs().nan_to_num(0.0).max())
     check(logit_err < TIE_TOL, f"slice parity: GPU and CPU logits differ by {logit_err}")
+    if beam_size > 1:
+        # each GPU hypothesis rescored by the CPU, teacher-forced, in its batch
+        max_new = min(224, dims.n_text_ctx - len(prompt))
+        rescored = []
+        for start in range(0, len(gsegs), 2):
+            batch = windows[start : start + 2]
+            hyps = [s.tokens for s in gsegs[start : start + 2]]
+            pad = 2 - len(batch)
+            rescored += _rescore(cpu, audio, batch + [(0, 0)] * pad, hyps + [[]] * pad, prompt,
+                                 mask, max_new)[: len(batch)]
     equal = ties = 0
+    score_err = tie_gap = 0.0
     for idx, (gs, cs) in enumerate(zip(gsegs, csegs)):
         j = first_difference(gs.tokens, cs.tokens, tok.eot)
+        if beam_size > 1:
+            # beam rule (tests/test_torch_beam.py's): the GPU scores its
+            # hypothesis as the CPU does, and the CPU ranks it within
+            # TIE_TOL of its own best
+            r = rescored[idx] / (len(gs.tokens) + 1)
+            score_err = max(score_err, abs(gs.avg_logprob - r))
+            tie_gap = max(tie_gap, cs.avg_logprob - r)
+            print(f"  window {idx} ({gs.start:.2f} s): first differing token {j}; mean"
+                  f" log-probability per token GPU {gs.avg_logprob:.6f}, CPU's rescoring of the"
+                  f" GPU hypothesis {r:.6f}, CPU's best {cs.avg_logprob:.6f}")
+            check(abs(gs.avg_logprob - r) < SCORE_TOL, f"slice parity: the GPU scores its beam"
+                  f" hypothesis of window {gs.start}s {gs.avg_logprob - r:+.2e} from the CPU's"
+                  f" rescoring, beyond {SCORE_TOL}")
+            check(r > cs.avg_logprob - TIE_TOL, f"slice parity: the CPU ranks the GPU's beam"
+                  f" hypothesis of window {gs.start}s {cs.avg_logprob - r:.4f} below its best,"
+                  f" beyond {TIE_TOL}")
         if j is None:
             check(gs.text == cs.text, f"slice parity: window at {gs.start}s: text differs")
             equal += 1
+            continue
+        ties += 1
+        if beam_size > 1:
             continue
         # tie rule: at the first differing step, the CPU's logits rank
         # the two picks within TIE_TOL of each other
@@ -408,11 +670,12 @@ def phase_slice_parity(seed: int, devices=("cuda", "cpu")) -> None:
               f" CPU logit gap {gap:.4f}, CPU top-2 margin {margin:.4f}")
         check(max(gap, margin) < TIE_TOL, f"slice parity: token {j} of window {gs.start}s"
               f" differs beyond the tie tolerance {TIE_TOL}")
-        ties += 1
-    print(f"[5 slice parity] {len(gsegs)} windows in {len(gpu.last_decode_steps)} batches"
-          f" (decode steps {gpu.last_decode_steps}): {equal} token-equal, {ties} differ"
-          f" at a tie (CPU logit gap and top-2 margin < {TIE_TOL}); GPU vs CPU logits of"
-          f" window 0 after 8 tokens: max|err| {logit_err:.4f} (bound {TIE_TOL})")
+    rule = (f"GPU score vs CPU rescoring max {score_err:.2e} < {SCORE_TOL:g}, CPU best minus"
+            f" rescoring max {tie_gap:.4f}" if beam_size > 1 else "CPU logit gap and top-2 margin")
+    print(f"[5 slice parity] beam {beam_size}: {len(gsegs)} windows in"
+          f" {len(gpu.last_decode_steps)} batches (decode steps {gpu.last_decode_steps}):"
+          f" {equal} token-equal, {ties} differ at a tie ({rule} < {TIE_TOL}); GPU vs CPU"
+          f" logits of window 0 after 8 tokens: max|err| {logit_err:.4f} (bound {TIE_TOL})")
 
 
 def synthetic_transcript(audio_seconds: int, seg_len_s: int = 25, wpm: int = 150) -> list:
@@ -480,8 +743,10 @@ def phase_main_path(seed: int) -> dict:
     from whisper_nemo_tpu_torch.align.segmented import align_segments
     from whisper_nemo_tpu_torch.asr import BatchedInferencePipeline, WhisperModel
     from whisper_nemo_tpu_torch.ops import attention as at
+    from whisper_nemo_tpu_torch.ops import beam_permute as bp
     from whisper_nemo_tpu_torch.ops import cross_decode as cd
     from whisper_nemo_tpu_torch.ops import ctc
+    from whisper_nemo_tpu_torch.ops import self_decode as sd
 
     t0 = time.time()
     model = WhisperModel("medium.en", device="cuda", compute_type="int8", seed=seed)
@@ -498,21 +763,64 @@ def phase_main_path(seed: int) -> dict:
     timed_segments = synthetic_transcript(audio_seconds)
     L_dec, L_enc = eng.dims.n_text_layer, eng.dims.n_audio_layer
 
-    cd.cross_attention_decode_layered.launches = 0
-    at.encoder_attention.launches = 0
-    ctc.viterbi_batch.launches = 0
-    results = []
-    for req in range(2):
-        torch.cuda.synchronize()
-        t1 = time.time()
-        segments, info = pipeline.transcribe(audio, language="en", batch_size=32, beam_size=1)
-        segments = list(segments)
-        torch.cuda.synchronize()
-        results.append((time.time() - t1, segments, info, list(eng.last_decode_steps)))
-    launches_a = cd.cross_attention_decode_layered.launches
-    launches_b = at.encoder_attention.launches
+    # kernel F is on no path: its counters are read to show it stays off
+    counters = (cd.cross_attention_decode_layered, at.encoder_attention,
+                sd.self_attention_decode_ancestry_layered, ctc.viterbi_batch,
+                bp.beam_permute_cache, bp.beam_permute_cache_inplace)
+
+    def zero_counts():
+        for fn in counters:
+            fn.launches = 0
+
+    def run_asr(n_requests, **kw):
+        runs = []
+        for _ in range(n_requests):
+            torch.cuda.synchronize()
+            t1 = time.time()
+            segments, info = pipeline.transcribe(audio, language="en", batch_size=32, **kw)
+            segments = list(segments)
+            torch.cuda.synchronize()
+            runs.append((time.time() - t1, segments, info, list(eng.last_decode_steps)))
+        return runs, [fn.launches for fn in counters]
+
+    def check_asr(runs, a, b, what):
+        steps = [s for r in runs for s in r[3]]
+        batches = sum(len(r[3]) for r in runs)
+        check(a > 0 and b > 0, f"{what}: a kernel of the main path never launched")
+        check(a == sum(steps) * L_dec,
+              f"{what}: kernel A launched {a} times, expected {sum(steps)} steps x {L_dec} layers")
+        check(b == batches * L_enc,
+              f"{what}: kernel B launched {b} times, expected {batches} batches x {L_enc} layers")
+        for wall, segs, info, st in runs:
+            check(len(segs) >= 33, f"{what}: expected >= 33 windows (a full and a partial batch),"
+                  f" got {len(segs)}")
+            check(len(st) == -(-len(segs) // 32), f"{what}: one decode per batch of 32 windows")
+            for s in segs:
+                check(np.isfinite(s.avg_logprob) and 0.0 <= s.no_speech_prob <= 1.0,
+                      f"{what}, segment {s.id}: non-finite log-prob or no-speech prob out of range")
+                check(0.0 <= s.start < s.end <= info.duration + 1e-6,
+                      f"{what}, segment {s.id}: bad span")
+                check(len(s.tokens) <= 224, f"{what}, segment {s.id}: {len(s.tokens)} tokens")
+        check(all([s.tokens for s in r[1]] == [s.tokens for s in runs[0][1]] for r in runs),
+              f"{what}: the requests gave different tokens")
+        return steps, batches
+
+    # the CLI's call: the facade's default beam 5, warm and timed
+    zero_counts()
+    beam_runs, (a_beam, b_beam, e_beam, d_beam, *f_beam) = run_asr(2)
+    beam_steps, beam_batches = check_asr(beam_runs, a_beam, b_beam, "beam 5")
+    check(e_beam == sum(beam_steps) * L_dec and e_beam == a_beam,
+          f"beam 5: kernel E launched {e_beam} times, expected {sum(beam_steps)} steps x {L_dec}"
+          f" layers, as kernel A ({a_beam})")
+    check(d_beam == 0, "beam 5: kernel D launched during ASR")
+    # bench.py's call: greedy, one timed request
+    zero_counts()
+    greedy_runs, (a_greedy, b_greedy, e_greedy, _, *f_greedy) = run_asr(1, beam_size=1)
+    greedy_steps, greedy_batches = check_asr(greedy_runs, a_greedy, b_greedy, "greedy")
+    check(e_greedy == 0, f"greedy: kernel E launched {e_greedy} times")
     # stage 5 of the flow: the ASR segments' words aligned (here on the
     # synthetic transcript); the warm request records stage times
+    zero_counts()
     stats = {}
     aligned = []
     for req in range(2):
@@ -522,26 +830,13 @@ def phase_main_path(seed: int) -> dict:
                                batch_size=8, device="cuda", stats=None if req else stats)
         torch.cuda.synchronize()
         aligned.append((time.time() - t1, words))
-    launches_b_align = at.encoder_attention.launches - launches_b
+    launches_b_align = at.encoder_attention.launches
     launches_d = ctc.viterbi_batch.launches
+    f_align = [bp.beam_permute_cache.launches, bp.beam_permute_cache_inplace.launches]
+    launches_f = [x + y + z for x, y, z in zip(f_beam, f_greedy, f_align)]
+    check(launches_f == [0, 0], f"kernel F launched {launches_f} times (out of place, in place)"
+          " on the main path, which has no caller of it")
 
-    steps = [s for r in results for s in r[3]]
-    batches = sum(len(r[3]) for r in results)
-    check(launches_a > 0 and launches_b > 0, "a kernel of the main path never launched")
-    check(launches_a == sum(steps) * L_dec,
-          f"kernel A launched {launches_a} times, expected {sum(steps)} steps x {L_dec} layers")
-    check(launches_b == batches * L_enc,
-          f"kernel B launched {launches_b} times, expected {batches} batches x {L_enc} layers")
-    for wall, segs, info, st in results:
-        check(len(segs) >= 33, f"expected >= 33 windows (a full and a partial batch), got {len(segs)}")
-        check(len(st) == -(-len(segs) // 32), "one decode per batch of 32 windows")
-        for s in segs:
-            check(np.isfinite(s.avg_logprob) and 0.0 <= s.no_speech_prob <= 1.0,
-                  f"segment {s.id}: non-finite log-prob or no-speech prob out of range")
-            check(0.0 <= s.start < s.end <= info.duration + 1e-6, f"segment {s.id}: bad span")
-            check(len(s.tokens) <= 224, f"segment {s.id}: {len(s.tokens)} tokens")
-    check([s.tokens for s in results[0][1]] == [s.tokens for s in results[1][1]],
-          "the two requests gave different tokens")
     n_chunks = math.ceil(audio_seconds / CHUNK_SECONDS)
     emission_batches = math.ceil(n_chunks / 8)
     groups = stats["groups"]
@@ -562,15 +857,23 @@ def phase_main_path(seed: int) -> dict:
         check([w["start"] for w in words] == sorted(w["start"] for w in words),
               "word rows out of order")
     check(aligned[0][1] == aligned[1][1], "the two alignment requests gave different words")
-    wall, segs, info, st = results[1]
+    wall, segs, info, st = beam_runs[1]
     print(
-        f"[6 main path] medium.en int8 b32 greedy: setup {setup_s:.1f} s | audio"
-        f" {info.duration:.0f} s, after VAD {info.duration_after_vad:.1f} s | windows"
-        f" {len(segs)}, segments {len(segs)}, decode steps per batch {st} | launches"
-        f" A {launches_a} (= {sum(steps)} steps x {L_dec}), B {launches_b} (= {batches}"
-        f" batches x {L_enc}) over both requests | warm request {results[0][0]:.2f} s,"
-        f" timed request {wall:.2f} s ({wall / info.duration * 3600:.1f} s per audio hour,"
+        f"[6 main path] medium.en int8 b32 beam 5 (the facade's default): setup {setup_s:.1f} s"
+        f" | audio {info.duration:.0f} s, after VAD {info.duration_after_vad:.1f} s | windows"
+        f" {len(segs)}, decode steps per batch {st} | launches A {a_beam} and E {e_beam} (each"
+        f" = {sum(beam_steps)} steps x {L_dec}), B {b_beam} (= {beam_batches} batches x"
+        f" {L_enc}) over both requests | warm request {beam_runs[0][0]:.2f} s, timed request"
+        f" {wall:.2f} s ({wall / info.duration * 3600:.1f} s per audio hour,"
         f" {wall * 1e3 / sum(st):.2f} ms per decode step, whole request)"
+    )
+    wall, segs, info, st = greedy_runs[0]
+    print(
+        f"[6 main path] medium.en int8 b32 greedy (beam_size=1): windows {len(segs)}, decode"
+        f" steps per batch {st} | launches A {a_greedy} (= {sum(greedy_steps)} steps x {L_dec}),"
+        f" B {b_greedy} (= {greedy_batches} batches x {L_enc}), E 0 | timed request {wall:.2f} s"
+        f" ({wall / info.duration * 3600:.1f} s per audio hour, {wall * 1e3 / sum(st):.2f} ms"
+        f" per decode step, whole request)"
     )
     align_wall = aligned[1][0]
     print(
@@ -584,16 +887,25 @@ def phase_main_path(seed: int) -> dict:
         f" {stats['post_s']:.3f} s, stages synchronised), timed request {align_wall:.2f} s"
         f" ({align_wall / audio_seconds * 3600:.1f} s per audio hour)"
     )
-    return {"launches_a": launches_a, "launches_b": launches_b + launches_b_align,
-            "launches_d": launches_d, "engine": eng, "audio": audio, "aligner": aligner,
+    print(f"[6 main path] kernel F launches over the three runs: out of place {launches_f[0]},"
+          f" in place {launches_f[1]} (no path calls it)")
+    return {"launches_a": a_greedy, "launches_a_beam": a_beam, "launches_f": launches_f,
+            "launches_b": b_beam + b_greedy + launches_b_align, "launches_d": launches_d,
+            "launches_e": e_beam, "engine": eng, "audio": audio, "aligner": aligner,
             "align_tok": align_tok, "segments": timed_segments}
 
 
-def phase_stage_times(main: dict) -> None:
+def phase_stage_times(main: dict, a: dict, e: dict) -> None:
     """Encoder ms per batch of 32 windows and decode ms per step at b32,
-    measured after the main path (these launches are not counted)."""
+    greedy and beam 5, measured after the main path (these launches are
+    not counted); then the beam step's parts: kernels E and A (24 layer
+    launches each, from phases 3c and 3), the vocabulary projection and
+    the selection (top-K over 5 x 51864 candidates a window, token and
+    ancestry gathers)."""
     import torch
 
+    from whisper_nemo_tpu_torch.engine.decode import beam_advance, top_k_lowest_index
+    from whisper_nemo_tpu_torch.models.whisper import _vocab_logits
     from whisper_nemo_tpu_torch.models.whisper_stacked import (
         cross_kv_decode_layout_fused,
         decode_step_stacked,
@@ -625,10 +937,66 @@ def phase_stage_times(main: dict) -> None:
         enqueue_ms = (time.perf_counter() - t0) * 1e3 / 50
         torch.cuda.synchronize()
         done_ms = (time.perf_counter() - t0) * 1e3 / 50
-    print(f"[6b stages] b32 medium.en int8: mel {mel_ms:.2f} ms, encoder {enc_ms:.2f} ms,"
-          f" cross-KV projection+quantization {ckv_ms:.2f} ms, decode step {step_ms:.3f} ms"
-          f" (CUDA events); host enqueues a step in {enqueue_ms:.3f} ms, device done"
-          f" {done_ms:.3f} ms after the first enqueue, per step")
+        greedy_prof = profiled_device_ms(lambda i=0: decode_step_stacked(
+            eng.params, tok, 2 + i, cache, ckv, eng.dims, eng.dtype, return_hidden=True), 5)
+        print(f"[6b stages] b32 medium.en int8: mel {mel_ms:.2f} ms, encoder {enc_ms:.2f} ms,"
+              f" cross-KV projection+quantization {ckv_ms:.2f} ms, greedy decode step"
+              f" {step_ms:.3f} ms (CUDA events); host enqueues a step in {enqueue_ms:.3f} ms,"
+              f" device done {done_ms:.3f} ms after the first enqueue, per step |"
+              f" torch.profiler: {fmt_profile(greedy_prof)}")
+        del cache
+
+        # the beam step at B·K = 160 rows over the window-shared cross-KV
+        bk, dev = WINDOWS * BEAM, feats.device
+        g = torch.Generator(device=dev).manual_seed(7)
+        cache = init_stacked_cache(bk, eng.dims, eng.dtype, CACHE_LEN, dev)
+        anc = torch.randint(0, BEAM, (WINDOWS, BEAM, CACHE_LEN), device=dev, generator=g,
+                            dtype=torch.int32)
+        tok = torch.full((bk,), 220, device=dev)
+
+        def beam_step(i=0):
+            return decode_step_stacked(eng.params, tok, 2 + i % 200, cache, ckv, eng.dims,
+                                       eng.dtype, return_hidden=True, anc=anc)
+
+        beam_ms = cuda_ms(beam_step, 30)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(30):
+            beam_step(i)
+        beam_enqueue_ms = (time.perf_counter() - t0) * 1e3 / 30
+        torch.cuda.synchronize()
+        beam_done_ms = (time.perf_counter() - t0) * 1e3 / 30
+        beam_prof = profiled_device_ms(lambda i=0: beam_step(100 + i), 5)
+        hid, _ = beam_step()
+        vocab_ms = cuda_ms(lambda i=0: _vocab_logits(eng.params["decoder"], hid), 20)
+        opts = eng._make_opts()
+        filt = torch.randn((bk, eng.dims.n_vocab), device=dev, generator=g)
+        scores = torch.zeros((WINDOWS, BEAM), device=dev)
+        tokens = torch.zeros((bk, 226), dtype=torch.long, device=dev)
+        finished = torch.zeros(bk, dtype=torch.bool, device=dev)
+        eot_only = torch.full((eng.dims.n_vocab,), float("-inf"), device=dev)
+        eot_only[opts.eot] = 0.0
+        select_ms = cuda_ms(lambda i=0: beam_advance(
+            filt, scores, tokens, anc, finished, 100, eot_only, opts.eot), 20)
+        cand = torch.randn((WINDOWS, BEAM * eng.dims.n_vocab), device=dev, generator=g)
+        topk_ms = cuda_ms(lambda i=0: top_k_lowest_index(cand, BEAM), 20)
+        lib_topk_ms = cuda_ms(lambda i=0: torch.topk(cand, BEAM, dim=1), 20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            beam_advance(filt, scores, tokens, anc, finished, 100, eot_only, opts.eot)
+        select_enqueue_ms = (time.perf_counter() - t0) * 1e3 / 20
+        torch.cuda.synchronize()
+    e_ms, a_ms = e[(127, False)]["ms"] * L_DEC, a[5]["ms"] * L_DEC
+    print(f"[6b stages] beam step, B·K={bk} medium.en int8, cache {CACHE_LEN}: decode step"
+          f" {beam_ms:.3f} ms (CUDA events, positions 2-201); host enqueues a step in"
+          f" {beam_enqueue_ms:.3f} ms, device done {beam_done_ms:.3f} ms after the first"
+          f" enqueue, per step | torch.profiler at positions 100-104: {fmt_profile(beam_prof)}"
+          f" | of the device time: kernel E {e_ms:.3f} ms (24 x phase 3c at"
+          f" pos 127), kernel A {a_ms:.3f} ms (24 x phase 3 at beam 5) | per selection: vocab"
+          f" projection {vocab_ms:.3f} ms, beam_advance {select_ms:.3f} ms (host enqueue"
+          f" {select_enqueue_ms:.3f} ms), of it the tie-ordered top-K {topk_ms:.3f} ms"
+          f" (torch.topk alone {lib_topk_ms:.3f} ms)")
 
 
 def phase_align_stage_times(main: dict, d_case_a: dict) -> None:
@@ -670,11 +1038,15 @@ def main() -> int:
     phase_build()
     a = phase_kernel_a(args.seed)
     d = phase_kernel_d(args.seed)
+    e = phase_kernel_e(args.seed)
+    f = phase_kernel_f(args.seed)
+    kernel_c_bound()
     b = phase_kernel_b(args.seed)
     phase_slice_parity(args.seed)
+    phase_slice_parity(args.seed, beam_size=BEAM)
     phase_align_parity(args.seed)
     main_run = phase_main_path(args.seed)
-    phase_stage_times(main_run)
+    phase_stage_times(main_run, a, e)
     phase_align_stage_times(main_run, d["a"])
 
     import torch
@@ -683,7 +1055,11 @@ def main() -> int:
         {"name": "cross_attention_decode_layered", "route": "cuda",
          "source": "whisper_nemo_tpu_torch/csrc/cross_decode.cu",
          "replaces": "whisper_nemo_tpu/ops/cross_decode.py:261",
-         "launches": main_run["launches_a"], **a},
+         "launches": main_run["launches_a"], **a[1]},
+        {"name": "cross_attention_decode_layered (beam 5)", "route": "cuda",
+         "source": "whisper_nemo_tpu_torch/csrc/cross_decode.cu",
+         "replaces": "whisper_nemo_tpu/ops/cross_decode.py:261",
+         "launches": main_run["launches_a_beam"], **a[5]},
         {"name": "encoder_attention", "route": "cuda",
          "source": "whisper_nemo_tpu_torch/csrc/encoder_attention.cu",
          "replaces": "whisper_nemo_tpu/ops/attention.py:91",
@@ -692,6 +1068,19 @@ def main() -> int:
          "source": "whisper_nemo_tpu_torch/csrc/viterbi.cu",
          "replaces": "whisper_nemo_tpu/ops/viterbi_pallas.py:101",
          "launches": main_run["launches_d"], **d["a"]},
+        {"name": "self_attention_decode_ancestry_layered", "route": "cuda",
+         "source": "whisper_nemo_tpu_torch/csrc/self_decode.cu",
+         "replaces": "whisper_nemo_tpu/ops/self_decode.py:198",
+         "launches": main_run["launches_e"], **e[(127, False)]},
+        # kernel F lies on no path of the port (nor of the JAX package)
+        {"name": "beam_permute_cache", "route": "cuda",
+         "source": "whisper_nemo_tpu_torch/csrc/beam_permute.cu",
+         "replaces": "whisper_nemo_tpu/ops/beam_permute.py:48",
+         "launches": main_run["launches_f"][0], **f["out of place"]},
+        {"name": "beam_permute_cache_inplace", "route": "cuda",
+         "source": "whisper_nemo_tpu_torch/csrc/beam_permute.cu",
+         "replaces": "whisper_nemo_tpu/ops/beam_permute.py:120",
+         "launches": main_run["launches_f"][1], **f["in place"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

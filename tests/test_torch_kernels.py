@@ -1,4 +1,4 @@
-"""The port's kernel wrappers (kernels A, B and D), without JAX.
+"""The port's kernel wrappers (kernels A, B, D, E and F), without JAX.
 
 On the CPU the wrappers must run the plain versions and count no launch;
 on any other device they launch the kernel or raise. The CUDA cases hold
@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from whisper_nemo_tpu_torch.ops import attention, cross_decode, ctc
+from whisper_nemo_tpu_torch.ops import attention, beam_permute, cross_decode, ctc, self_decode
 
 
 @pytest.fixture
@@ -45,6 +45,45 @@ def test_wrappers_take_the_plain_version_on_cpu():
     torch.testing.assert_close(got, attention._xla_attention(x[0], x[1], x[2]), rtol=0, atol=0)
     assert cross_decode.cross_attention_decode_layered.launches == 0
     assert attention.encoder_attention.launches == 0
+
+
+def _ancestry_inputs(device, dtype, seed, layers=2, b=3, kk=5, h=4, s=40):
+    """Seeded q ``[B·K, 1, H, 64]``, cache ``[L, B·K, H, 64, S]``, anc
+    ``[B, K, S]`` int32 and a shared mask hiding the last 7 positions."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    bk = b * kk
+    q = torch.randn((bk, 1, h, 64), device=device, generator=g).to(dtype)
+    k, v = (torch.randn((layers, bk, h, 64, s), device=device, generator=g).to(dtype)
+            for _ in range(2))
+    anc = torch.randint(0, kk, (b, kk, s), device=device, generator=g, dtype=torch.int32)
+    mask = torch.where(torch.arange(s, device=device) < s - 7, 0.0, float("-inf"))[None, None, None]
+    return q, k, v, anc, mask
+
+
+def test_beam_wrappers_take_the_plain_version_on_cpu():
+    """Kernels E and F on CPU tensors: exactly the plain versions (the
+    ancestry attention of the named layer; the row gather, out of place
+    and in place), no launch counted."""
+    self_decode.self_attention_decode_ancestry_layered.launches = 0
+    beam_permute.beam_permute_cache.launches = 0
+    beam_permute.beam_permute_cache_inplace.launches = 0
+    q, k, v, anc, mask = _ancestry_inputs("cpu", torch.float32, 2)
+    got = self_decode.self_attention_decode_ancestry_layered(q, k, v, anc, mask, 1, 5, n_visible=33)
+    want = attention.attention_kt_ancestry(q, k[1], v[1], anc, mask)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    got = self_decode.self_attention_decode_ancestry(q, k[0], v[0], anc, mask, 5)
+    torch.testing.assert_close(got, attention.attention_kt_ancestry(q, k[0], v[0], anc, mask),
+                               rtol=0, atol=0)
+    src = torch.tensor([[4, 4, 0, 1, 2], [0, 1, 2, 3, 4], [3, 3, 3, 3, 3]])
+    idx = (torch.arange(3)[:, None] * 5 + src).reshape(-1)
+    want = (k[:, idx], v[:, idx])
+    assert all(torch.equal(g, w) for g, w in zip(beam_permute.beam_permute_cache(k, v, idx), want))
+    got = beam_permute.beam_permute_cache_inplace(k, v, src, 5)
+    assert got[0] is k and got[1] is v
+    assert torch.equal(k, want[0]) and torch.equal(v, want[1])
+    assert self_decode.self_attention_decode_ancestry_layered.launches == 0
+    assert beam_permute.beam_permute_cache.launches == 0
+    assert beam_permute.beam_permute_cache_inplace.launches == 0
 
 
 def _viterbi_case(r, t, n, seed):
@@ -98,6 +137,14 @@ def test_wrappers_raise_off_the_cpu_without_cuda():
     with pytest.raises(ValueError, match="CUDA device"):
         ctc.viterbi_batch(torch.empty((2, 10, 5), device=meta),
                           torch.empty((2, 5), dtype=torch.bool, device=meta))
+    q, k, v, anc, mask = (x.to(meta) for x in _ancestry_inputs("cpu", torch.bfloat16, 0))
+    with pytest.raises(ValueError, match="CUDA device"):
+        self_decode.self_attention_decode_ancestry_layered(q, k, v, anc, mask, 0, 5)
+    idx = torch.arange(15, device=meta)
+    with pytest.raises(ValueError, match="CUDA device"):
+        beam_permute.beam_permute_cache(k, v, idx)
+    with pytest.raises(ValueError, match="CUDA device"):
+        beam_permute.beam_permute_cache_inplace(k, v, idx.reshape(3, 5), 5)
 
 
 @pytest.mark.cuda
@@ -140,3 +187,59 @@ def test_viterbi_kernel_matches_plain_on_cuda(cuda_device, r, t, n):
     assert ctc.viterbi_batch.launches == launches + 1
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_row_mask", [False, True])
+def test_self_decode_kernel_matches_plain_on_cuda(cuda_device, per_row_mask):
+    """Kernel E against its plain version on the card, at both layers of
+    the cache and both mask forms (one shared row, one row per beam row),
+    with positions past the last visible one unread: 1e-2 + 1e-2·|plain|
+    on bf16 outputs of order 1 (both round the output to bf16 once; the
+    kernel's f32 sums run in another order). Out-of-range shapes and
+    types raise (chip_smoke.py checks the main path's shapes)."""
+    q, k, v, anc, mask = _ancestry_inputs(cuda_device, torch.bfloat16, 5)
+    if per_row_mask:
+        g = torch.Generator(device=cuda_device).manual_seed(9)
+        keep = torch.rand((15, 40), device=cuda_device, generator=g) > 0.3
+        keep[:, 0] = True
+        mask = torch.where(keep & (torch.arange(40, device=cuda_device) < 33), 0.0,
+                           float("-inf"))[:, None, None, :].contiguous()
+    launches = self_decode.self_attention_decode_ancestry_layered.launches
+    for layer in (0, 1):
+        got = self_decode.self_attention_decode_ancestry_layered(q, k, v, anc, mask, layer, 5,
+                                                                 n_visible=33)
+        want = attention.attention_kt_ancestry(q, k[layer], v[layer], anc, mask)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+    assert self_decode.self_attention_decode_ancestry_layered.launches == launches + 2
+    with pytest.raises(TypeError, match="int32"):
+        self_decode.self_attention_decode_ancestry_layered(q, k, v, anc.long(), mask, 0, 5)
+    with pytest.raises(ValueError, match="shapes"):
+        self_decode.self_attention_decode_ancestry_layered(q, k, v, anc, mask, 2, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", [(torch.bfloat16, (3, 15, 4, 64, 40)),
+                                         (torch.float32, (2, 10, 3, 5)),
+                                         (torch.int8, (2, 10, 7))])
+def test_beam_permute_kernel_matches_plain_on_cuda(cuda_device, dtype, shape):
+    """Kernel F against its plain versions on the card, bit for bit: rows
+    of 16-byte vectors, of 4-byte ones and of single bytes; out of place
+    with rows from any window, in place with gather repeats."""
+    g = torch.Generator(device=cuda_device).manual_seed(len(shape))
+    k, v = (torch.randint(-100, 100, shape, device=cuda_device, generator=g).to(dtype)
+            for _ in range(2))
+    idx = torch.randperm(shape[1], device=cuda_device, generator=g)
+    idx[0] = idx[1]
+    got = beam_permute.beam_permute_cache(k, v, idx)
+    want = (k[:, idx], v[:, idx])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    src = torch.randint(0, 5, (shape[1] // 5, 5), device=cuda_device, generator=g)
+    rows = (torch.arange(shape[1] // 5, device=cuda_device)[:, None] * 5 + src).reshape(-1)
+    want = (k[:, rows].clone(), v[:, rows].clone())
+    got = beam_permute.beam_permute_cache_inplace(k, v, src, 5)
+    torch.cuda.synchronize()
+    assert got[0] is k and torch.equal(k, want[0]) and torch.equal(v, want[1])

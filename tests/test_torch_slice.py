@@ -64,10 +64,11 @@ def _first_difference(a, b, eot):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
-def _jax_step_logits(engine, audio, windows, row, prefix):
-    """JAX's filtered f32 logits for window ``windows[row]`` after the
-    teacher-forced ``prefix``, over the batch the window was decoded in
-    (the int8 cross-KV scales are taken over the batch)."""
+def _jax_forced_logits(engine, audio, windows, hyps):
+    """JAX's filtered f32 logits ``[BATCH, n, V]`` of each window's
+    hypothesis ``hyps[i]`` (generated tokens), teacher-forced through one
+    prefill of the batch of ``windows`` (the int8 cross-KV scales are
+    taken over the batch): row ``t`` predicts generated token ``t``."""
     waves = np.zeros((BATCH, 480000), np.float32)
     for i, (s, e) in enumerate(windows):
         n = min(e - s, 480000)
@@ -75,17 +76,25 @@ def _jax_step_logits(engine, audio, windows, row, prefix):
     feats = engine.encode_windows(jax_mel_batch(jnp.asarray(waves), 80)).astype(jnp.bfloat16)
     stacked = engine._params_stacked
     ckv = jws.quantize_cross_kv_stacked(jws.cross_attention_kv_stacked(stacked, feats, engine.dims))
+    opts = engine._make_opts()
+    prompt = engine.tokenizer.sot_sequence(None, without_timestamps=True)
+    n = len(prompt) + max(len(h) for h in hyps)
+    tokens = jnp.asarray([(prompt + list(h) + [opts.eot] * n)[:n] for h in hyps])
     cache = jws.init_stacked_cache(BATCH, engine.dims, jnp.bfloat16, cache_len=128)
-    tokens = jnp.asarray([prefix] * BATCH)
     x, _ = jws.prefill_cache_stacked(stacked, tokens, cache, ckv, engine.dims, jnp.bfloat16)
-    logits = np.array(jw._vocab_logits(stacked["decoder"], x[row, -1]))
-    tok = engine.tokenizer
-    logits += build_suppress_mask(engine.dims.n_vocab, get_suppressed_tokens(tok, (-1,)))
-    logits[tok.timestamp_begin :] = -np.inf
-    logits[tok.no_timestamps] = -np.inf
-    if len(prefix) == len(tok.sot_sequence(None, without_timestamps=True)):
-        logits[tok.eot] = -np.inf
+    logits = np.array(jw._vocab_logits(stacked["decoder"], x[:, len(prompt) - 1 :]), np.float32)
+    logits += build_suppress_mask(engine.dims.n_vocab, get_suppressed_tokens(engine.tokenizer, (-1,)))
+    logits[..., opts.timestamp_begin :] = -np.inf
+    logits[..., opts.no_timestamps] = -np.inf
+    logits[:, 0, [opts.blank_token, opts.eot]] = -np.inf
     return logits
+
+
+def _jax_step_logits(engine, audio, windows, row, generated):
+    """JAX's filtered f32 logits for window ``windows[row]`` after the
+    teacher-forced ``generated`` tokens, over the batch the window was
+    decoded in."""
+    return _jax_forced_logits(engine, audio, windows, [generated] * BATCH)[row, -1]
 
 
 def test_batched_pipeline_matches_jax():
@@ -122,7 +131,6 @@ def test_batched_pipeline_matches_jax():
     assert info.duration == want_info.duration
     assert info.duration_after_vad == want_info.duration_after_vad
     eot = model.engine.tokenizer.eot
-    prompt = model.engine.tokenizer.sot_sequence(None, without_timestamps=True)
     windows = [(int(round(s.start * SR)), int(round(s.end * SR))) for s in want]
     for idx, (g, w) in enumerate(zip(got, want)):
         assert abs(g.no_speech_prob - w.no_speech_prob) < 1e-3
@@ -134,7 +142,7 @@ def test_batched_pipeline_matches_jax():
         first = idx - idx % BATCH
         batch = windows[first : first + BATCH]
         batch += [(0, 0)] * (BATCH - len(batch))
-        logits = _jax_step_logits(jmodel.engine, audio, batch, idx % BATCH, prompt + w.tokens[:j])
+        logits = _jax_step_logits(jmodel.engine, audio, batch, idx % BATCH, w.tokens[:j])
         top2 = np.sort(logits)[-2:]
         gap = logits[(w.tokens + [eot])[j]] - logits[(g.tokens + [eot])[j]]
         assert max(top2[1] - top2[0], gap) < TIE_TOL, (idx, j, top2, gap)
@@ -151,8 +159,8 @@ def test_speech_timestamps_match_jax(seconds):
 
 
 def test_facade_refuses_what_the_port_lacks():
-    """beam search, word timestamps, the sequential path and device
-    "auto" raise instead of running something else."""
+    """timestamp decoding, word timestamps, the sequential path and
+    device "auto" raise instead of running something else."""
     model = WhisperModel(
         "tiny.en", device="cpu", compute_type="int8",
         params=params_from_jax(jw.init_whisper_params(jax.random.PRNGKey(0), jw.WhisperDims(*DIMS))),
@@ -161,7 +169,7 @@ def test_facade_refuses_what_the_port_lacks():
     audio = np.zeros(SR, np.float32)
     pipeline = BatchedInferencePipeline(model)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.transcribe(audio, language="en", beam_size=5)
+        pipeline.transcribe(audio, language="en", without_timestamps=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipeline.transcribe(audio, language="en", beam_size=1, word_timestamps=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -5,8 +5,10 @@ batched path the CLI's ``run_asr`` drives:
 
     model = WhisperModel(name, device="cuda", compute_type="int8")
     pipeline = BatchedInferencePipeline(model)
-    segments, info = pipeline.transcribe(audio, language="en",
-                                         batch_size=32, beam_size=1)
+    segments, info = pipeline.transcribe(audio, language="en", batch_size=32)
+
+``beam_size`` defaults to 5, as in faster-whisper and the JAX package; 1
+runs greedy decode.
 """
 
 from __future__ import annotations

@@ -3,9 +3,9 @@
 Counterpart of the batched half of ``whisper_nemo_tpu/engine/transcribe.py``
 (faster-whisper's ``BatchedInferencePipeline`` strategy): energy-VAD
 spans merge into windows of at most 30 s, windows run through the
-encoder and a greedy no-timestamp decode in batches, and each window
-becomes one segment bounded by its span. The waveform goes to the device
-once per call and each window is a slice of it.
+encoder and a greedy or beam no-timestamp decode in batches, and each
+window becomes one segment bounded by its span. The waveform goes to the
+device once per call and each window is a slice of it.
 """
 
 from __future__ import annotations
@@ -24,10 +24,8 @@ from ..ops.mel import HOP_LENGTH, N_SAMPLES, SAMPLE_RATE, log_mel_spectrogram_ba
 from ..text.tokenizer import WhisperTokenizer, get_suppressed_tokens
 from ..vad.energy import get_speech_timestamps
 from .checkpoint import cast_floats, model_cache_dir, resolve_model, to_device
-from .decode import DecodeOptions, build_suppress_mask, greedy_decode
+from .decode import ROADMAP_NOTE, DecodeOptions, beam_decode, build_suppress_mask, greedy_decode
 from .quantize import quantize_whisper_params
-
-ROADMAP_NOTE = "not ported yet; see ROADMAP.md, queue 1"
 
 
 @dataclass
@@ -71,7 +69,7 @@ _COMPUTE_DTYPES = {
 
 
 class WhisperEngine:
-    """Model + tokenizer + batched greedy decode on one device."""
+    """Model + tokenizer + batched greedy or beam decode on one device."""
 
     def __init__(
         self,
@@ -148,6 +146,7 @@ class WhisperEngine:
         language: Optional[str],
         suppress_mask: torch.Tensor,
         task: str = "transcribe",
+        beam_size: int = 1,
     ):
         sot_seq = self.tokenizer.sot_sequence(
             language if self.multilingual else None, task, without_timestamps=True
@@ -155,10 +154,17 @@ class WhisperEngine:
         n_prompt = len(sot_seq)
         opts = self._make_opts(max_new_tokens=min(224, self.dims.n_text_ctx - n_prompt))
         prompt = torch.tensor(sot_seq, device=self.device).repeat(feats.shape[0], 1)
-        tokens, length, sum_logprob, no_speech, steps = greedy_decode(
-            self.params, feats, prompt, suppress_mask, self.dims, opts,
-            dtype=self.dtype, kv_bits=self.kv_bits,
-        )
+        if beam_size > 1:
+            out = beam_decode(
+                self.params, feats, prompt, suppress_mask, self.dims, opts,
+                beam_size=beam_size, dtype=self.dtype, kv_bits=self.kv_bits,
+            )
+        else:
+            out = greedy_decode(
+                self.params, feats, prompt, suppress_mask, self.dims, opts,
+                dtype=self.dtype, kv_bits=self.kv_bits,
+            )
+        tokens, length, sum_logprob, no_speech, steps = out
         return tokens, length, sum_logprob, no_speech, n_prompt, steps
 
     def transcribe_batched(
@@ -171,8 +177,8 @@ class WhisperEngine:
         beam_size: int = 1,
         task: str = "transcribe",
     ) -> Tuple[List[Segment], TranscriptionInfo]:
-        if beam_size > 1:
-            raise NotImplementedError(f"beam search (beam_size={beam_size}) is {ROADMAP_NOTE}")
+        if beam_size < 1:
+            raise ValueError(f"beam_size must be at least 1, got {beam_size}")
         if not without_timestamps:
             raise NotImplementedError(f"timestamp decoding is {ROADMAP_NOTE}")
         duration = len(audio) / SAMPLE_RATE
@@ -206,7 +212,7 @@ class WhisperEngine:
             mels = log_mel_spectrogram_batch(waves, self.dims.n_mels)
             feats = self.encode_windows(mels)
             tokens, lengths, sum_lp, no_speech, n_prompt, steps = self._decode_batch(
-                feats, language, suppress_mask, task=task
+                feats, language, suppress_mask, task=task, beam_size=beam_size
             )
             self.last_decode_steps.append(steps)
             tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()

@@ -1,16 +1,18 @@
-"""Layer-stacked Whisper decoder: prefill and the greedy decode step.
+"""Layer-stacked Whisper decoder: prefill and the decode step.
 
 Counterpart of ``whisper_nemo_tpu/models/whisper_stacked.py`` for the
 decode layout only: the cross-KV is the fused int8 ``[L, B, H, 2D, Kp]``
 array of ``ops/cross_decode.py`` on every device, and the self-attention
 cache is ``[L, B, H, D, S]`` (positions last). The layer loop is a Python
-loop; kernel A receives the whole cross-KV stack and the layer index.
-The cache is updated in place.
+loop; kernels A and E receive the whole stack and the layer index. The
+cache is updated in place. Beam search runs the same step on ``B·K``
+rows with an ancestry map (kernel E) and the window's cross-KV shared by
+its ``K`` lanes (kernel A).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -20,6 +22,7 @@ from ..ops.cross_decode import (
     quantize_decode_layout,
     split_unpack,
 )
+from ..ops.self_decode import self_attention_decode_ancestry_layered
 from .whisper import (
     WhisperDims,
     _layer_norm,
@@ -175,10 +178,15 @@ def decode_step_stacked(
     dims: WhisperDims,
     dtype,
     return_hidden: bool = False,
+    anc: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, dict]:
     """One decode step at position ``pos``: f32 logits ``[B, V]`` (or the
     final-norm hidden ``[B, D]`` with ``return_hidden``) and the cache,
-    updated in place. Cross-attention runs kernel A on a CUDA tensor."""
+    updated in place. Cross-attention runs kernel A on a CUDA tensor.
+    Beam search passes ``anc`` (``[W, K, S]`` int32, ``B = W·K`` rows):
+    self-attention then selects each position's lane through it (kernel
+    E) over the never-reordered cache, and a window's ``K`` lanes share
+    its cross-KV."""
     dec = params["decoder"]
     b = token.shape[0]
     x = embed_tokens(dec, token, pos, dtype)[:, None, :]
@@ -186,6 +194,7 @@ def decode_step_stacked(
     visible = torch.arange(cache_len, device=token.device) <= pos
     mask = torch.where(visible, 0.0, float("-inf"))[None, None, None, :]
     kv_dec, k_len, bits = cross_kv["kv_dec"], cross_kv["_k_len"], cross_kv["_bits"]
+    beam = 1 if anc is None else anc.shape[1]
     n_head = dims.n_text_head
     for li, blk in enumerate(dec["layers"]):
         xn = _layer_norm(blk["ln1"], x)
@@ -194,14 +203,19 @@ def decode_step_stacked(
         v_new = _split_heads(_linear(blk["attn"]["v"], xn), n_head)
         cache["k"][li, ..., pos] = k_new[:, 0]
         cache["v"][li, ..., pos] = v_new[:, 0]
-        attn = attention_kt(q, cache["k"][li], cache["v"][li], mask)
+        if anc is None:
+            attn = attention_kt(q, cache["k"][li], cache["v"][li], mask)
+        else:
+            attn = self_attention_decode_ancestry_layered(
+                q, cache["k"], cache["v"], anc, mask, li, beam, n_visible=pos + 1
+            )
         x = x + _linear(blk["attn"]["o"], attn.reshape(b, 1, -1))
 
         xq = _layer_norm(blk["ln_cross"], x)
         qc = _split_heads(_linear(blk["cross_attn"]["q"], xq), n_head)
         cross = cross_attention_decode_layered(
             qc, kv_dec, cross_kv["k_dec_scale"][li], cross_kv["v_dec_scale"][li],
-            li, k_len, bits=bits,
+            li, k_len, bits=bits, beam=beam,
         ).to(qc.dtype)
         x = x + _linear(blk["cross_attn"]["o"], cross.reshape(b, 1, -1))
         x = x + _mlp(blk["mlp_in"], blk["mlp_out"], _layer_norm(blk["ln2"], x))

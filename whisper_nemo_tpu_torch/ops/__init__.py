@@ -1,1 +1,2 @@
-"""Kernels and tensor ops: attention, cross-attention decode, mel, framing."""
+"""Kernels and tensor ops: attention, cross- and self-attention decode, beam permute,
+mel, framing, CTC."""

@@ -94,16 +94,33 @@ encoder_attention.launches = 0
 def attention_kt(q, k_t, v_t, mask=None):
     """Decode-step attention over a transposed KV cache:
     ``[B, Tq, H, D] x K^T/V^T [B, H, D, S] -> [B, Tq, H, D]``. The softmax
-    scale folds into q; the softmax is f32. The products run in the
-    cache's dtype (PyTorch returns them in that dtype, where the JAX
-    package keeps f32 logits)."""
+    scale folds into q, which is rounded to the cache's dtype. The logits
+    are f32 products of those operands (exact for bf16, summed in f32, as
+    the JAX package's ``preferred_element_type``), the softmax is f32,
+    and the weights return to q's dtype for the product with V."""
     scale = q.shape[-1] ** -0.5
     qq = (q * scale).to(k_t.dtype).permute(0, 2, 1, 3)  # [B, H, Tq, D]
-    logits = torch.matmul(qq, k_t).float()  # [B, H, Tq, S]
+    logits = torch.matmul(qq.float(), k_t.float())  # [B, H, Tq, S]
     if mask is not None:
         logits = torch.where(mask >= 0.0, logits, _MASK_VALUE)
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(weights, v_t.transpose(-1, -2)).permute(0, 2, 1, 3)
+
+
+def attention_kt_ancestry(q, k_t, v_t, anc, mask=None):
+    """Beam decode-step attention over a cache that is never reordered:
+    query lane ``j`` of window ``b`` reads position ``s`` from row
+    ``b·K + anc[b, j, s]``. q ``[B·K, 1, H, D]``, k_t/v_t
+    ``[B·K, H, D, S]``, anc ``[B, K, S]`` int in ``[0, K)``, mask
+    ``[1|B·K, 1, 1, S]`` -> ``[B·K, 1, H, D]``.
+
+    The plain version of kernel E (``ops/self_decode.py``): the
+    explicit gather of each lane's history, then :func:`attention_kt`.
+    The JAX package's one-hot formulations compute the same function."""
+    b, kk, s = anc.shape
+    rows = (torch.arange(b, device=anc.device)[:, None, None] * kk + anc).reshape(b * kk, 1, 1, s)
+    idx = rows.long().expand(-1, k_t.shape[1], k_t.shape[2], -1)
+    return attention_kt(q, torch.gather(k_t, 0, idx), torch.gather(v_t, 0, idx), mask)
 
 
 def multihead_attention(q, k, v, mask: Optional[torch.Tensor] = None):
