@@ -19,8 +19,13 @@ Phases, one line each:
   3d. kernel F (beam cache permute) against its plain versions, bit for
      bit, out of place and in place, on the same cache, with
      index_select timed beside it as a yardstick;
-  3e. the bound of the TPU kernel C (single-window mel), which is not
-     ported yet, reckoned from its shapes;
+  3e. kernel C (single-window log-mel) against its plain version at 80
+     and 128 mel bands: a 30 s window, a 7.3 s one zero-padded to 30 s,
+     silence and a batch of 32 windows;
+  3f. kernels A, B and E at the sequential path's batch-1 shapes: A at
+     one window, beam 5 and 1; B at one window; E at B·K = 5 with a
+     384-position cache, one mask row per beam row and 40 left-padded
+     slots;
   4. kernel B (encoder attention) against its plain version at the
      medium.en encoder shape and the wav2vec2 aligner's, with SDPA timed
      beside it as a yardstick;
@@ -30,6 +35,10 @@ Phases, one line each:
   5b. alignment parity: wav2vec2 emissions at small dims on the GPU
      against the CPU, then the segmented aligner on both fed the same
      emissions;
+  5c. sequential parity: WhisperModel.transcribe at small multilingual
+     dims (language detection, VAD, beam 5, timestamps, conditioning) on
+     the GPU, each window replayed on the CPU at the GPU's seek with the
+     GPU's conditioning tail;
   6. the main path, as the CLI flow runs it: WhisperModel("medium.en",
      compute_type="int8") and BatchedInferencePipeline.transcribe(
      batch_size=32) at its default beam 5 on two requests of 20 minutes
@@ -40,6 +49,15 @@ Phases, one line each:
      encoder batches, emission batches and Viterbi groups of each;
   6b. stage times of both stages, measured apart, and the beam step's
      parts;
+  6c. the sequential main path, the CLI's --batch-size 0 call:
+     WhisperModel("medium.en", compute_type="int8").transcribe(audio,
+     None, suppress_tokens=[-1], vad_filter=True) at its defaults (beam
+     5, the temperature ladder, conditioning on the previous text,
+     timestamps), one warm request of one window and one timed request
+     of 50 s; then the openai facade on the same audio with the serving
+     handler's arguments; launches of C, B, A and E checked against the
+     windows and decode steps; then the sequential request's stage
+     times;
   7. the card's name and power limit, the kernels' JSON line, and last
      {"ok": true, "device": {...}}.
 Any phase that fails raises, and the script exits non-zero without the
@@ -69,6 +87,9 @@ BOUND_D = 0.0  # one f32 add per state and step and an exact max: bit-equal
 # may round the other way. Outputs are of order 1.
 BOUND_E = (1e-2, 1e-2)  # |kernel - plain| <= atol + rtol * |plain|
 BOUND_F = 0.0  # a copy: bit-equal
+# Kernel C against its plain version, after whisper's normalization (values
+# of order 1): the same f32 products summed in another order
+BOUND_C = 1e-4
 # Phase 5b, f32 emissions of a 2-layer wav2vec2 (log-probs of order 1-10):
 # kernel B rounds its f32 operands to bf16 for the tensor cores (2^-8
 # relative), and the conv stack and linears sum in another order
@@ -199,8 +220,8 @@ def phase_build():
 
     t0 = time.time()
     names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
-    check(names == ["beam_permute", "cross_decode", "encoder_attention", "self_decode", "viterbi"],
-          f"unexpected kernel sources {names}")
+    check(names == ["beam_permute", "cross_decode", "encoder_attention", "log_mel", "self_decode",
+                    "viterbi"], f"unexpected kernel sources {names}")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.load, names))
     secs = time.time() - t0
@@ -209,6 +230,24 @@ def phase_build():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     print(f"[2 build] kernels built and loaded in {secs:.1f} s into {_build.BUILD_DIR}")
+
+
+def kernel_a_bound_ms(windows: int, beam: int, bits: int, H=16, D=64, T=1500) -> float:
+    """Least time of one kernel A layer launch: the K|V^T bytes of the T
+    real positions (read once for all beam lanes; bits 4 packs two values
+    a byte), q and the output, at the memory rate."""
+    rows = 2 * D if bits == 8 else D
+    return (windows * H * rows * T + 2 * windows * beam * H * D * 4) / HBM_BYTES_S * 1e3
+
+
+def kernel_e_bound(bk: int, n_vis: int, mask_rows: int, H=HEADS, D=HEAD_DIM) -> tuple:
+    """(least time, what bounds it) of one kernel E layer launch: the
+    visible K and V of every row, q, the output, anc and the mask, each
+    read or written once; 4 FLOPs a visible channel at the f32 rate."""
+    bytes_ = 2 * bk * H * D * n_vis * 2 + 2 * bk * H * D * 2 + bk * n_vis * 4 + mask_rows * n_vis * 4
+    by_bytes = bytes_ / HBM_BYTES_S * 1e3
+    by_ops = 4.0 * bk * H * D * n_vis / F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def phase_kernel_a(seed: int) -> dict:
@@ -249,11 +288,7 @@ def phase_kernel_a(seed: int) -> dict:
         del kv
     out = {}
     for (bits, beam), (err, ms, plain_ms) in timing.items():
-        # least time for one layer launch: the K|V^T bytes of the T real
-        # positions (read once for all beam lanes; bits 4 packs two values
-        # a byte), q and the output, at the memory rate
-        rows = 2 * D if bits == 8 else D
-        bound_ms = (W * H * rows * T + 2 * W * beam * H * D * 4) / HBM_BYTES_S * 1e3
+        bound_ms = kernel_a_bound_ms(W, beam, bits)
         print(f"[3 kernel A] bound at bits {bits} beam {beam}: {bound_ms:.4f} ms/layer (bytes);"
               f" kernel at {bound_ms / ms:.0%} of it")
         if bits == 8:
@@ -262,21 +297,169 @@ def phase_kernel_a(seed: int) -> dict:
     return out
 
 
-def kernel_c_bound() -> None:
-    """The least time of the TPU kernel C's work (``ops/mel.py``
-    ``_log_mel_pallas``, not ported yet) for one 30 s window: frames
-    ``[3000, 400]`` f32 times the Hann-windowed cosine and sine bases
-    ``[400, 201]``, re^2 + im^2, times the mel bank ``[201, 80]``, log10.
-    Its products are f32 (the port keeps TF32 off), so the operations
-    are taken at the f32 rate outside the tensor cores."""
-    frames, n_fft, bins, mels = 3000, 400, 201, 80
-    ops = 2 * 2 * frames * n_fft * bins + 3 * frames * bins + 2 * frames * bins * mels \
-        + frames * mels
-    bytes_ = 4 * (frames * n_fft + 2 * n_fft * bins + bins * mels + frames * mels)
+def kernel_c_bound(n_windows: int, n_mels: int) -> tuple:
+    """(least time, what bounds it) of the function kernel C computes, the
+    un-normalized log10 mel of ``n_windows`` 30 s windows: the larger of
+    the bytes it must move (each waveform read once, the nonzero weights
+    of this run's mel bank once, the output written once) over the memory
+    rate, and the f32 operations it needs over the f32 rate outside the
+    tensor cores. Per frame those are the Hann window (400 products), a
+    400-point real FFT (2.5·N·log2 N, half of a complex FFT's 5·N·log2 N),
+    re^2 + im^2 (3 a bin), one multiply-add for each nonzero weight of the
+    bank (the Slaney bank touches each bin at most twice), and the clamp
+    and log10 (2 an output)."""
+    from whisper_nemo_tpu_torch.ops import mel
+
+    frames, n_fft = mel.N_FRAMES, mel.N_FFT
+    bins = n_fft // 2 + 1
+    nnz = int(np.count_nonzero(mel.mel_filter_bank(bins, n_mels)))
+    ops = n_windows * frames * (n_fft + 2.5 * n_fft * math.log2(n_fft) + 3 * bins + 2 * nnz
+                                + 2 * n_mels)
+    bytes_ = 4 * (n_windows * mel.N_SAMPLES + nnz + n_windows * frames * n_mels)
     by_ops, by_bytes = ops / F32_FLOPS * 1e3, bytes_ / HBM_BYTES_S * 1e3
-    print(f"[3e kernel C, not ported] bound per 30 s window: {ops / 1e9:.3f} GFLOP f32 at"
-          f" {F32_FLOPS / 1e12:.0f} TFLOP/s = {by_ops:.4f} ms (operations); {bytes_ / 1e6:.2f} MB"
-          f" at {HBM_BYTES_S / 1e12:.2f} TB/s = {by_bytes:.4f} ms")
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def kernel_c_design_ops(n_mels: int) -> float:
+    """The f32 operations kernel C's design runs on one window, beside
+    what the function needs (``kernel_c_bound``): the DFT as frames
+    ``[3000, 400]`` times the cosine and sine bases ``[400, 201]``, and the
+    mel step as a dense product with the bank ``[201, n_mels]``."""
+    frames, n_fft, bins = 3000, 400, 201
+    return (2 * 2 * frames * n_fft * bins + 3 * frames * bins + 2 * frames * bins * n_mels
+            + 2 * frames * n_mels)
+
+
+def phase_kernel_c(seed: int) -> dict:
+    """Kernel C against its plain version (cuBLAS f32, TF32 off) after
+    whisper's normalization, at 80 and 128 mel bands, on one 30 s window,
+    a 7.3 s one zero-padded to 30 s, silence (every bin at the clamp,
+    exactly) and a batch of 32 windows; times per window."""
+    import torch
+
+    from whisper_nemo_tpu_torch.ops import mel
+
+    dev = torch.device("cuda")
+    padded = np.zeros(mel.N_SAMPLES, np.float32)
+    padded[: int(7.3 * SR)] = speechlike(7.3, seed + 6)
+    cases = {
+        "window": speechlike(30.0, seed + 5)[None],
+        "padded 7.3 s": padded[None],
+        "silence": np.zeros((1, mel.N_SAMPLES), np.float32),
+        "batch of 32": speechlike(32 * 30.0, seed + 7).reshape(32, mel.N_SAMPLES),
+    }
+    out = {}
+    for n_mels in (80, 128):
+        for case, waves_np in cases.items():
+            waves = torch.from_numpy(waves_np).to(dev)
+            n = waves.shape[0]
+            got = mel._log_mel_cuda(waves, n_mels)
+            want = mel._log_mel_plain(waves, n_mels)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), "kernel C gave non-finite values")
+            err = float((mel._finalize(got) - mel._finalize(want)).abs().max())
+            raw_err = float((got - want).abs().max())
+            if case == "silence":
+                check(bool((got == -10.0).all()), "kernel C: silence is not at the clamp")
+            ms = cuda_ms(lambda i=0: mel._log_mel_cuda(waves, n_mels), 50 if n == 1 else 10) / n
+            plain_ms = cuda_ms(lambda i=0: mel._log_mel_plain(waves, n_mels), 20 if n == 1 else 5) / n
+            bound_ms, bound_by = kernel_c_bound(1, n_mels)
+            design = kernel_c_design_ops(n_mels)
+            print(f"[3e kernel C] {n_mels} mels, {case}: max|err| {err:.3e} normalized (bound"
+                  f" {BOUND_C:g}; un-normalized log10 {raw_err:.3e}) | kernel {ms:.4f} ms per"
+                  f" window, plain {plain_ms:.4f} ms | bound {bound_ms:.5f} ms ({bound_by}, the"
+                  f" function's FFT and sparse bank), kernel at {bound_ms / ms:.2%} of it | the"
+                  f" design's dense DFT and bank: {design / 1e9:.3f} GFLOP a window,"
+                  f" {design / F32_FLOPS * 1e3:.4f} ms at the f32 rate,"
+                  f" {design / ms / 1e9:.1f} TFLOP/s run")
+            check(err <= BOUND_C, f"kernel C {n_mels} mels, {case}: max|err| {err} > {BOUND_C}")
+            if case == "window":
+                out[n_mels] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    return out
+
+
+def phase_sequential_shapes(seed: int) -> dict:
+    """Kernels A, B and E at the sequential path's shapes, beside their
+    plain versions: A on one window (W=1) at beam 5 and beam 1, B on one
+    window (the encoder at B=1), E at B·K=5 with medium.en's 384-position
+    cache at pos 100, one mask row per beam row and 40 left-padded
+    slots."""
+    import torch
+    import torch.nn.functional as F
+
+    from whisper_nemo_tpu_torch.ops import attention as at
+    from whisper_nemo_tpu_torch.ops import cross_decode as cd
+    from whisper_nemo_tpu_torch.ops import self_decode as sd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    L, H, D, T = L_DEC, HEADS, HEAD_DIM, 1500
+    kp = T + (-T % 128)
+    out = {}
+    kv = torch.randint(-127, 128, (L, 1, H, 2 * D, kp), device=dev, generator=g, dtype=torch.int8)
+    k_scale = torch.full((H, D), 0.03, device=dev)
+    v_scale = torch.full((H, D), 1.0 / 127, device=dev)
+    for beam in (5, 1):
+        q = torch.randn((beam, 1, H, D), device=dev, generator=g).to(torch.bfloat16)
+        qs = (q[:, 0].float() * (k_scale * D**-0.5)[None]).contiguous()
+        got = cd._cross_attention_decode_cuda(qs, kv, L - 1, T, 8, beam) * v_scale
+        ref = cd._cross_attention_decode_plain(qs, kv, L - 1, T, 8, beam) * v_scale
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        ms = cuda_ms(lambda i=0: cd._cross_attention_decode_cuda(qs, kv, i % L, T, 8, beam), 96)
+        plain_ms = cuda_ms(lambda i=0: cd._cross_attention_decode_plain(qs, kv, i % L, T, 8, beam), 24)
+        bound_ms = kernel_a_bound_ms(1, beam, 8)
+        print(f"[3f kernel A] W=1 beam {beam} bits 8: max|err| {err:.3e} (bound {BOUND_A:g}) | kernel"
+              f" {ms:.4f} ms/layer ({H} CTAs), plain {plain_ms:.4f} ms | bound {bound_ms:.4f} ms"
+              f" (bytes), kernel at {bound_ms / ms:.0%} of it")
+        check(err <= BOUND_A, f"kernel A at W=1 beam {beam}: max|err| {err} > {BOUND_A}")
+        out[f"A beam {beam}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+    del kv
+
+    q, k, v = (torch.randn((1, T, H, D), device=dev, generator=g).to(torch.bfloat16) for _ in range(3))
+    got = at._encoder_attention_cuda(q, k, v)
+    ref = at._xla_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    ms = cuda_ms(lambda i=0: at._encoder_attention_cuda(q, k, v), 20)
+    plain_ms = cuda_ms(lambda i=0: at._xla_attention(q, k, v), 10)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = cuda_ms(lambda i=0: F.scaled_dot_product_attention(qt, kt, vt), 20)
+    bound_ms = 4 * H * T * T * D / BF16_FLOPS * 1e3
+    print(f"[3f kernel B] B=1 T={T} H={H} D={D} bf16: max|err| {err:.3e} (bound {BOUND_B:g}) |"
+          f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms | bound"
+          f" {bound_ms:.4f} ms (operations), kernel at {bound_ms / ms:.0%} of it")
+    check(err <= BOUND_B, f"kernel B at B=1: max|err| {err} > {BOUND_B}")
+    out["B"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "operations", "library_ms": lib_ms}
+
+    bk, s_len, pos, pad = BEAM, 384, 100, 40
+    kc, vc = (torch.randn((L, bk, H, D, s_len), device=dev, generator=g, dtype=torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn((bk, 1, H, D), device=dev, generator=g, dtype=torch.bfloat16)
+    anc = torch.randint(0, BEAM, (1, BEAM, s_len), device=dev, generator=g, dtype=torch.int32)
+    positions = torch.arange(s_len, device=dev)
+    keep = (positions >= pad) & (positions <= pos)
+    mask = torch.where(keep, 0.0, float("-inf"))[None, None, None, :].repeat(bk, 1, 1, 1).contiguous()
+    atol, rtol = BOUND_E
+    got = sd._self_decode_cuda(q, kc, vc, anc, mask, L - 1, BEAM, pos + 1).float()
+    ref = at.attention_kt_ancestry(q, kc[L - 1], vc[L - 1], anc, mask).float()
+    torch.cuda.synchronize()
+    diff = (got - ref).abs()
+    err, excess = float(diff.max()), float((diff - rtol * ref.abs()).max())
+    ms = cuda_ms(lambda i=0: sd._self_decode_cuda(q, kc, vc, anc, mask, i % L, BEAM, pos + 1), 96)
+    plain_ms = cuda_ms(lambda i=0: at.attention_kt_ancestry(q, kc[i % L], vc[i % L], anc, mask), 24)
+    bound_ms, bound_by = kernel_e_bound(bk, pos + 1, bk)
+    print(f"[3f kernel E] B·K={bk} S={s_len} pos {pos}, one mask row per beam row, {pad} pad"
+          f" slots: max|err| {err:.3e} (bound {atol:g} + {rtol:g}·|plain|) | kernel {ms:.4f}"
+          f" ms/layer ({H * bk} CTAs), plain {plain_ms:.4f} ms | bound {bound_ms:.5f} ms"
+          f" ({bound_by}), kernel at {bound_ms / ms:.0%} of it")
+    check(excess <= atol, f"kernel E at B·K={bk} S={s_len}: |err| exceeds {atol} + {rtol}·|plain|")
+    out["E"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+    return out
 
 
 def _viterbi_inputs(r: int, t: int, n: int, seed: int, star_every: int = 0):
@@ -402,11 +585,7 @@ def phase_kernel_e(seed: int) -> dict:
         plain_ms = cuda_ms(lambda i=0: at.attention_kt_ancestry(
             q, k[i % L_DEC], v[i % L_DEC], anc, mask), 6)
         kv_bytes = 2 * bk * HEADS * HEAD_DIM * n_vis * 2
-        bytes_ = kv_bytes + 2 * q.numel() * 2 + anc.numel() // CACHE_LEN * n_vis * 4 \
-            + mask.numel() // CACHE_LEN * n_vis * 4
-        by_bytes = bytes_ / HBM_BYTES_S * 1e3
-        by_ops = 4.0 * bk * HEADS * HEAD_DIM * n_vis / F32_FLOPS * 1e3
-        bound_ms, bound_by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+        bound_ms, bound_by = kernel_e_bound(bk, n_vis, mask.numel() // CACHE_LEN)
         case = f"pos {pos}, {'one mask row per beam row' if per_row else 'shared mask'}"
         print(f"[3c kernel E] B·K={bk} H={HEADS} D={HEAD_DIM} S={CACHE_LEN} {case}: max|err|"
               f" {err:.3e} (bound {atol:g} + {rtol:g}·|plain|) | kernel {ms:.4f} ms/layer"
@@ -678,6 +857,131 @@ def phase_slice_parity(seed: int, devices=("cuda", "cpu"), beam_size: int = 1) -
           f" logits of window 0 after 8 tokens: max|err| {logit_err:.4f} (bound {TIE_TOL})")
 
 
+def _rescore_window(engine, feats, prompt, valid, hyp, suppress_mask, language):
+    """The sum of filtered f32 log-probabilities of one window's
+    hypothesis ``hyp`` (its generated tokens, then EOT unless it ran to
+    the limit) after its (left-padded) prompt, teacher-forced in one
+    prefill with each step's timestamp rules: the score beam search gives
+    it."""
+    import torch
+
+    from whisper_nemo_tpu_torch.engine.decode import _filter_logits, _static_filter
+    from whisper_nemo_tpu_torch.models.whisper import _vocab_logits
+    from whisper_nemo_tpu_torch.models.whisper_stacked import (
+        cross_kv_decode_layout_fused,
+        init_stacked_cache,
+        prefill_cache_stacked,
+    )
+
+    p, dims, dev = engine.params, engine.dims, feats.device
+    n_prompt = len(prompt)
+    opts = engine._make_opts(without_timestamps=False,
+                             max_new_tokens=min(224, dims.n_text_ctx - n_prompt))
+    target = list(hyp) + ([opts.eot] if len(hyp) < opts.max_new_tokens else [])
+    tokens = torch.tensor([list(prompt) + target], device=dev)
+    n = tokens.shape[1]
+    cache_len = min(dims.n_text_ctx, -(-n // 128) * 128)
+    kv_valid = torch.ones((1, cache_len), dtype=torch.bool, device=dev)
+    kv_valid[0, :n_prompt] = torch.from_numpy(np.asarray(valid, bool)).to(dev)
+    with torch.inference_mode():
+        ckv = cross_kv_decode_layout_fused(p, feats.to(engine.dtype), dims, bits=engine.kv_bits)
+        cache = init_stacked_cache(1, dims, engine.dtype, cache_len, dev)
+        x, _ = prefill_cache_stacked(p, tokens, cache, ckv, dims, engine.dtype, kv_valid=kv_valid,
+                                     pos_offset=(~kv_valid[:, :n_prompt]).sum(dim=1))
+        logits = _vocab_logits(p["decoder"], x[0, n_prompt - 1 : n - 1])
+        static = _static_filter(suppress_mask, opts, dev)
+        total = 0.0
+        for t, tok in enumerate(target):
+            filt = _filter_logits(logits[t : t + 1], static, tokens, n_prompt + t, n_prompt, opts)
+            total += float(torch.log_softmax(filt, dim=-1)[0, tok])
+    return total
+
+
+def phase_sequential_parity(seed: int, devices=("cuda", "cpu")) -> None:
+    """The sequential facade at small multilingual dims (head dim 64,
+    medium.en's n_text_ctx of 448, so the conditioning block is full and
+    the beam cache holds 384 positions) on the first device, language
+    detected, VAD, beam 5, temperature 0: then on the second device the
+    detection on the same audio, and each window decoded again at the
+    first device's seek with its conditioning tail. Tokens equal, or the
+    beam rule of phase 5: the first device's mean log-probability per
+    token within SCORE_TOL of the second's teacher-forced rescoring, and
+    the second's best within TIE_TOL of it."""
+    import torch
+
+    from whisper_nemo_tpu_torch.asr import WhisperModel
+    from whisper_nemo_tpu_torch.engine.transcribe import WhisperEngine, _window_at
+    from whisper_nemo_tpu_torch.models.whisper import WhisperDims, init_whisper_params
+    from whisper_nemo_tpu_torch.ops import mel
+    from whisper_nemo_tpu_torch.text.tokenizer import WhisperTokenizer
+    from whisper_nemo_tpu_torch.vad.energy import get_speech_timestamps
+
+    dims = WhisperDims(80, 1500, 128, 2, 2, 51865, 448, 128, 2, 2)
+    params = init_whisper_params(dims, "cpu", torch.Generator().manual_seed(seed))
+    tok = WhisperTokenizer.byte_fallback(multilingual=True)
+    audio = speechlike(40.0, seed + 4)
+    model = WhisperModel("tiny", device=devices[0], compute_type="int8", params=params, dims=dims,
+                         tokenizer=tok)
+    cpu = WhisperEngine("tiny", "int8", device=devices[1], params=params, dims=dims, tokenizer=tok)
+    mel.log_mel_raw.launches = 0
+    segs, info = model.transcribe(audio, None, vad_filter=True, temperature=(0.0,))
+    segs = list(segs)
+    windows = model.engine.last_windows
+    launches_c = mel.log_mel_raw.launches
+    check(len(windows) >= 2 and windows[1]["previous"] is not None,
+          "sequential parity: expected two or more windows, the second conditioned")
+    if devices[0] != "cpu":
+        check(launches_c == len(windows) + 1, f"sequential parity: kernel C launched {launches_c}"
+              f" times, expected {len(windows)} windows + 1 language detection")
+    spans = get_speech_timestamps(audio, device=devices[1])
+    wave = torch.from_numpy(np.concatenate([audio[s["start"] : s["end"]] for s in spans]))
+    lang, prob, ranked = cpu.detect_language(wave, return_all=True)
+    probs = dict(ranked)
+    lang_err = max(abs(p - probs[c]) for c, p in info.all_language_probs)
+    top2 = sorted(probs.values())[-2:]
+    check(lang_err < 1e-3 and (info.language == lang or top2[1] - top2[0] < 1e-3),
+          f"sequential parity: language {info.language} vs {lang}, probabilities {lang_err}")
+    mask = cpu._suppress_mask((-1,))
+    equal = ties = 0
+    score_err = tie_gap = 0.0
+    for rec in windows:
+        with torch.inference_mode():
+            feats = cpu.encode_windows(mel.log_mel_spectrogram(
+                _window_at(wave, rec["seek"] * mel.HOP_LENGTH), dims.n_mels)[None])
+        toks, lengths, sum_lp, _, n_prompt, _ = cpu._decode_batch(
+            feats, info.language, mask, False, 0.0, rng_seed=rec["seek"],
+            previous_tokens=rec["previous"], beam_size=BEAM)
+        c_toks = toks[0, n_prompt : n_prompt + int(lengths[0])].tolist()
+        c_avg = float(sum_lp[0]) / (int(lengths[0]) + 1)
+        g_avg = rec["avg_logprob"]
+        # a step with every token masked gives a NaN score: a fault
+        check(math.isfinite(g_avg) and math.isfinite(c_avg), f"sequential parity: window at seek"
+              f" {rec['seek']} scores {g_avg} on the first device, {c_avg} on the second")
+        if first_difference(rec["tokens"], c_toks, tok.eot) is None:
+            equal += 1
+            continue
+        ties += 1
+        prompt, valid = cpu._prompt(info.language, False, rec["previous"])
+        r = _rescore_window(cpu, feats, prompt.tolist(),
+                            [True] * n_prompt if valid is None else valid.tolist(),
+                            rec["tokens"], mask, info.language) / (len(rec["tokens"]) + 1)
+        score_err = max(score_err, abs(g_avg - r))
+        tie_gap = max(tie_gap, c_avg - r)
+        print(f"  window at seek {rec['seek']}: first device {g_avg:.6f}, second's rescoring"
+              f" {r:.6f}, second's best {c_avg:.6f}")
+        check(abs(g_avg - r) < SCORE_TOL, f"sequential parity: seek {rec['seek']}: score"
+              f" {g_avg - r:+.2e} from the rescoring, beyond {SCORE_TOL}")
+        check(r > c_avg - TIE_TOL, f"sequential parity: seek {rec['seek']}: the second device's"
+              f" best leads by {c_avg - r:.4f}, beyond {TIE_TOL}")
+    print(f"[5c sequential parity] {devices[0]} vs {devices[1]}: language {info.language}"
+          f" ({info.language_probability:.5f}; probabilities max|err| {lang_err:.2e}, bound 1e-3)"
+          f" | windows {[(w['seek'], w['frames'], w['steps']) for w in windows]} (seek, frames"
+          f" consumed, decode steps) | {equal} token-equal, {ties} at a tie (score vs rescoring max"
+          f" {score_err:.2e} < {SCORE_TOL:g}, best minus rescoring max {tie_gap:.4f} < {TIE_TOL})"
+          f" | kernel C launches {launches_c}"
+          f" ({len(windows)} windows + 1 detection) | {len(segs)} segments")
+
+
 def synthetic_transcript(audio_seconds: int, seg_len_s: int = 25, wpm: int = 150) -> list:
     """bench.py's stand-in for the ASR text (random weights give unusable
     text): about ``wpm`` words a minute, one timed segment per
@@ -891,8 +1195,180 @@ def phase_main_path(seed: int) -> dict:
           f" in place {launches_f[1]} (no path calls it)")
     return {"launches_a": a_greedy, "launches_a_beam": a_beam, "launches_f": launches_f,
             "launches_b": b_beam + b_greedy + launches_b_align, "launches_d": launches_d,
-            "launches_e": e_beam, "engine": eng, "audio": audio, "aligner": aligner,
-            "align_tok": align_tok, "segments": timed_segments}
+            "launches_e": e_beam, "engine": eng, "model": model, "audio": audio,
+            "aligner": aligner, "align_tok": align_tok, "segments": timed_segments}
+
+
+def phase_sequential_main(main: dict, seed: int) -> dict:
+    """The CLI's --batch-size 0 call on medium.en int8 (the main path's
+    model): beam 5, the default ladder, conditioning, timestamps, VAD. One
+    warm request of one window, one timed request of 50 s; then the
+    serving handler's call through the openai facade (load_model, int8,
+    temperature 0, no conditioning, greedy) on the same audio. Each run's
+    kernel launches are checked against its windows and decode steps: C
+    one per seek window (medium.en is English-only: no detection runs the
+    model), B 24 per window, A 24 per decode step, E 24 per beam step."""
+    import torch
+
+    from whisper_nemo_tpu_torch.asr import load_model
+    from whisper_nemo_tpu_torch.ops import attention as at
+    from whisper_nemo_tpu_torch.ops import cross_decode as cd
+    from whisper_nemo_tpu_torch.ops import mel
+    from whisper_nemo_tpu_torch.ops import self_decode as sd
+
+    model, eng = main["model"], main["engine"]
+    L_dec, L_enc = eng.dims.n_text_layer, eng.dims.n_audio_layer
+    counters = (mel.log_mel_raw, at.encoder_attention, cd.cross_attention_decode_layered,
+                sd.self_attention_decode_ancestry_layered)
+
+    def run(what, call, engine, audio, beam: bool):
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        segments = call(audio)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        c, b, a, e = (fn.launches for fn in counters)
+        windows = [dict(w) for w in engine.last_windows]
+        beam_steps = sum(w["steps"][0] for w in windows if beam and w["temperatures"][0] == 0.0)
+        steps = sum(sum(w["steps"]) for w in windows)
+        check(c > 0 and b > 0 and a > 0, f"{what}: a kernel of the path never launched")
+        check(all(math.isfinite(w["avg_logprob"]) for w in windows), f"{what}: a window scored"
+              f" {[w['avg_logprob'] for w in windows]}: a step with every token masked")
+        check(c == len(windows), f"{what}: kernel C launched {c} times for {len(windows)} windows")
+        check(b == L_enc * len(windows), f"{what}: kernel B launched {b} times, expected"
+              f" {len(windows)} windows x {L_enc}")
+        check(a == L_dec * steps, f"{what}: kernel A launched {a} times, expected {steps} steps x"
+              f" {L_dec}")
+        check(e == L_dec * beam_steps, f"{what}: kernel E launched {e} times, expected"
+              f" {beam_steps} beam steps x {L_dec}")
+        for seg in segments:
+            check(np.isfinite(seg["start"]) and 0.0 <= seg["start"] <= seg["end"]
+                  and 0.0 <= seg["no_speech_prob"] <= 1.0, f"{what}: a segment out of range: {seg}")
+        per_window = "; ".join(
+            f"seek {w['seek']} +{w['frames']} frames, T {w['temperatures']} steps {w['steps']},"
+            f" kept {w['avg_logprob']:.3f} a token"
+            for w in windows)
+        print(f"[6c sequential] {what}: {len(windows)} windows ({per_window}) | decode steps"
+              f" {steps} ({beam_steps} beam) | launches C {c}, B {b}, A {a}, E {e} | wall"
+              f" {wall:.2f} s ({wall / (len(audio) / SR) * 3600:.0f} s per audio hour,"
+              f" {wall * 1e3 / steps:.2f} ms per decode step, whole request) | {len(segments)}"
+              " segments")
+        return {"wall": wall, "windows": windows, "steps": steps, "beam_steps": beam_steps,
+                "launches": (c, b, a, e), "audio_s": len(audio) / SR}
+
+    def cli(audio):
+        segments, info = model.transcribe(audio, None, suppress_tokens=[-1], vad_filter=True)
+        check(info.language == "en", f"6c: language {info.language}")
+        return [{"start": s.start, "end": s.end, "no_speech_prob": s.no_speech_prob}
+                for s in segments]
+
+    audio = speechlike(50.0, seed + 8)
+    run("warm request, 25 s", cli, eng, speechlike(25.0, seed + 9), True)
+    timed = run("timed request, 50 s (the CLI's --batch-size 0 call)", cli, eng, audio, True)
+    t0 = time.time()
+    handler_model = load_model("medium.en", "cuda", compute_type="int8", seed=seed)
+    torch.cuda.synchronize()
+    print(f"[6c sequential] openai facade: load_model('medium.en', 'cuda', compute_type='int8')"
+          f" {time.time() - t0:.1f} s")
+
+    def handler(audio):
+        out = handler_model.transcribe(audio, language="en", temperature=0.0, fp16=True,
+                                       condition_on_previous_text=False, no_speech_threshold=0.6,
+                                       logprob_threshold=-1.0, compression_ratio_threshold=2.4)
+        check(set(out) == {"text", "segments", "language", "duration"}, "6c: openai dict keys")
+        return out["segments"]
+
+    handler_run = run("openai facade, the serving handler's call, 50 s", handler,
+                      handler_model.engine, audio, False)
+    handler_model.engine.unload()
+    return {"timed": timed, "handler": handler_run}
+
+
+def phase_sequential_stage_times(main: dict, seq: dict, c: dict) -> None:
+    """The sequential request's stages apart, after 6c (these launches are
+    not counted): kernel C per window (phase 3e), the encoder at B=1, the
+    beam step at B·K=5 over a 384-position cache with the conditioning
+    mask, the greedy step at B=1, the step's logit filter with the
+    timestamp rules (CUDA events, and the host's enqueue time); the host's
+    share of a window is what the timed request's wall time leaves."""
+    import torch
+
+    from whisper_nemo_tpu_torch.engine.decode import _filter_logits, _sample, _static_filter
+    from whisper_nemo_tpu_torch.engine.transcribe import _window_at
+    from whisper_nemo_tpu_torch.models.whisper_stacked import (
+        cross_kv_decode_layout_fused,
+        decode_step_stacked,
+        init_stacked_cache,
+    )
+    from whisper_nemo_tpu_torch.ops import mel
+
+    eng, dev = main["engine"], torch.device("cuda")
+    wave = torch.from_numpy(speechlike(30.0, 3)).to(dev)
+    with torch.inference_mode():
+        m = mel.log_mel_spectrogram(_window_at(wave, 0), eng.dims.n_mels)[None]
+        enc_ms = cuda_ms(lambda i=0: eng.encode_windows(m), 5)
+        feats = eng.encode_windows(m)
+        ckv_ms = cuda_ms(lambda i=0: cross_kv_decode_layout_fused(eng.params, feats, eng.dims), 5)
+        ckv = cross_kv_decode_layout_fused(eng.params, feats, eng.dims)
+        s_len, n_prompt = 384, 66
+        valid = torch.ones((BEAM, s_len), dtype=torch.bool, device=dev)
+        valid[:, :40] = False
+        offset = torch.full((BEAM,), 40, device=dev)
+        anc = torch.randint(0, BEAM, (1, BEAM, s_len), device=dev, dtype=torch.int32)
+
+        def timed_step(rows, **kw):
+            cache = init_stacked_cache(rows, eng.dims, eng.dtype, s_len, dev)
+            tok = torch.full((rows,), 220, device=dev)
+
+            def step(i=0):
+                return decode_step_stacked(eng.params, tok, n_prompt + i % 200, cache, ckv, eng.dims,
+                                           eng.dtype, return_hidden=True, **kw)
+
+            ms = cuda_ms(step, 30)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(30):
+                step(i)
+            enqueue = (time.perf_counter() - t0) * 1e3 / 30
+            torch.cuda.synchronize()
+            device = sum(profiled_device_ms(lambda i=0: step(100 + i), 5).values())
+            return ms, enqueue, device
+
+        beam_ms, beam_enq, beam_dev = timed_step(BEAM, anc=anc, kv_valid=valid, pos_offset=offset)
+        greedy_ms, greedy_enq, greedy_dev = timed_step(1, kv_valid=valid[:1], pos_offset=offset[:1])
+        opts = eng._make_opts(without_timestamps=False, max_new_tokens=224, temperature=0.2)
+        static = _static_filter(eng._suppress_mask((-1,)), opts, dev)
+        g = torch.Generator(device=dev).manual_seed(0)
+        logits = torch.randn((BEAM, eng.dims.n_vocab), device=dev, generator=g)
+        tokens = torch.randint(0, 50000, (BEAM, n_prompt + 224), device=dev, generator=g)
+        filt_ms = cuda_ms(lambda i=0: _filter_logits(logits, static, tokens, n_prompt + 5 + i % 100,
+                                                     n_prompt, opts), 30)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(30):
+            _sample(_filter_logits(logits[:1], static, tokens[:1], n_prompt + 5 + i, n_prompt, opts),
+                    0.2, g)
+        filt_enq = (time.perf_counter() - t0) * 1e3 / 30
+        torch.cuda.synchronize()
+    t = seq["timed"]
+    n_win = len(t["windows"])
+    other_steps = t["steps"] - t["beam_steps"]
+    n_decodes = sum(len(w["temperatures"]) for w in t["windows"])
+    device_s = (n_win * (c[80]["ms"] + enc_ms) + n_decodes * ckv_ms + t["beam_steps"] * beam_dev
+                + other_steps * greedy_dev) / 1e3
+    print(f"[6c stages] per window: mel (kernel C) {c[80]['ms']:.4f} ms, encoder at B=1"
+          f" {enc_ms:.2f} ms, cross-KV projection {ckv_ms:.2f} ms a decode (CUDA events) | beam"
+          f" step (B·K=5, S=384, per-row mask): {beam_ms:.3f} ms a step by CUDA events, host"
+          f" enqueue {beam_enq:.3f} ms, device time {beam_dev:.3f} ms (torch.profiler) | greedy"
+          f" step (B=1): {greedy_ms:.3f} ms, host enqueue {greedy_enq:.3f} ms, device time"
+          f" {greedy_dev:.3f} ms | logit filter with the timestamp rules at B·K=5 {filt_ms:.3f}"
+          f" ms; filter and sampling at B=1, host enqueue {filt_enq:.3f} ms | timed request:"
+          f" {t['wall']:.2f} s for {n_win} windows, {n_decodes} decodes, {t['beam_steps']} beam and"
+          f" {other_steps} sampled steps; an estimate of their device time, these parts measured"
+          f" apart times their counts in the request (not a trace of it): {device_s:.2f} s"
+          f" ({device_s / t['wall']:.0%} of the wall time)")
 
 
 def phase_stage_times(main: dict, a: dict, e: dict) -> None:
@@ -1040,14 +1516,18 @@ def main() -> int:
     d = phase_kernel_d(args.seed)
     e = phase_kernel_e(args.seed)
     f = phase_kernel_f(args.seed)
-    kernel_c_bound()
+    c = phase_kernel_c(args.seed)
+    s3 = phase_sequential_shapes(args.seed)
     b = phase_kernel_b(args.seed)
     phase_slice_parity(args.seed)
     phase_slice_parity(args.seed, beam_size=BEAM)
     phase_align_parity(args.seed)
+    phase_sequential_parity(args.seed)
     main_run = phase_main_path(args.seed)
     phase_stage_times(main_run, a, e)
     phase_align_stage_times(main_run, d["a"])
+    seq = phase_sequential_main(main_run, args.seed)
+    phase_sequential_stage_times(main_run, seq, c)
 
     import torch
 
@@ -1081,6 +1561,23 @@ def main() -> int:
          "source": "whisper_nemo_tpu_torch/csrc/beam_permute.cu",
          "replaces": "whisper_nemo_tpu/ops/beam_permute.py:120",
          "launches": main_run["launches_f"][1], **f["in place"]},
+        # the sequential path (6c, the timed request): kernel C, and A, B
+        # and E at its batch-1 shapes
+        {"name": "log_mel_raw", "route": "cuda", "source": "whisper_nemo_tpu_torch/csrc/log_mel.cu",
+         "replaces": "whisper_nemo_tpu/ops/mel.py:149",
+         "launches": seq["timed"]["launches"][0], **c[80]},
+        {"name": "encoder_attention (sequential, B=1)", "route": "cuda",
+         "source": "whisper_nemo_tpu_torch/csrc/encoder_attention.cu",
+         "replaces": "whisper_nemo_tpu/ops/attention.py:91",
+         "launches": seq["timed"]["launches"][1], **s3["B"]},
+        {"name": "cross_attention_decode_layered (sequential, W=1 beam 5 and sampled)",
+         "route": "cuda", "source": "whisper_nemo_tpu_torch/csrc/cross_decode.cu",
+         "replaces": "whisper_nemo_tpu/ops/cross_decode.py:261",
+         "launches": seq["timed"]["launches"][2], **s3["A beam 5"]},
+        {"name": "self_attention_decode_ancestry_layered (sequential, B·K=5 S=384)",
+         "route": "cuda", "source": "whisper_nemo_tpu_torch/csrc/self_decode.cu",
+         "replaces": "whisper_nemo_tpu/ops/self_decode.py:198",
+         "launches": seq["timed"]["launches"][3], **s3["E"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

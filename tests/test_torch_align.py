@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import whisper_nemo_tpu.align.segmented as jax_seg
+from test_torch_slice import _one_torch_thread  # noqa: F401  (autouse)
 from whisper_nemo_tpu.align import api as jax_api
 from whisper_nemo_tpu.engine.checkpoint import save_params
 from whisper_nemo_tpu.models import wav2vec2 as jax_w2v

@@ -14,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_slice import BATCH, DIMS, SR, _first_difference, _jax_forced_logits, speechlike
+from test_torch_slice import (  # noqa: F401  (_one_torch_thread: autouse)
+    BATCH, DIMS, SR, _first_difference, _jax_forced_logits, _one_torch_thread, speechlike,
+)
 from whisper_nemo_tpu.asr import faster_whisper_api as jax_api
 from whisper_nemo_tpu.engine import decode as jd
 from whisper_nemo_tpu.models import whisper as jw

@@ -1,4 +1,4 @@
-"""The port's kernel wrappers (kernels A, B, D, E and F), without JAX.
+"""The port's kernel wrappers (kernels A, B, C, D, E and F), without JAX.
 
 On the CPU the wrappers must run the plain versions and count no launch;
 on any other device they launch the kernel or raise. The CUDA cases hold
@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from whisper_nemo_tpu_torch.ops import attention, beam_permute, cross_decode, ctc, self_decode
+from whisper_nemo_tpu_torch.ops import attention, beam_permute, cross_decode, ctc, mel, self_decode
 
 
 @pytest.fixture
@@ -121,6 +121,37 @@ def test_viterbi_takes_the_plain_version_on_cpu():
     assert ctc.viterbi_batch.launches == 0
 
 
+def _mel_windows(device, seed=0):
+    """Three 30 s f32 waveforms on ``device``: seeded noise with a tone,
+    a 7.3 s one zero-padded to 30 s, and silence."""
+    rng = np.random.default_rng(seed)
+    waves = np.zeros((3, mel.N_SAMPLES), np.float32)
+    t = np.arange(mel.N_SAMPLES) / mel.SAMPLE_RATE
+    waves[0] = 0.1 * rng.standard_normal(mel.N_SAMPLES) + 0.3 * np.sin(2 * np.pi * 440 * t)
+    n = int(7.3 * mel.SAMPLE_RATE)
+    waves[1, :n] = 0.2 * rng.standard_normal(n)
+    return torch.from_numpy(waves).to(device)
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_log_mel_takes_the_plain_version_on_cpu(n_mels):
+    """Kernel C's wrapper on CPU tensors: exactly the plain version, no
+    launch counted; the single-window mel is its normalized transpose,
+    and the batched mel the same formula."""
+    mel.log_mel_raw.launches = 0
+    waves = _mel_windows("cpu")
+    raw = mel.log_mel_raw(waves, n_mels)
+    want = mel._log_mel_plain(waves, n_mels)
+    assert raw.shape == (3, 3000, n_mels)
+    torch.testing.assert_close(raw, want, rtol=0, atol=0)
+    assert bool((raw[2] == -10.0).all())  # silence: every bin at the 1e-10 clamp
+    single = mel.log_mel_spectrogram(waves[1], n_mels)
+    torch.testing.assert_close(single, mel._finalize(want[1:2])[0].T, rtol=0, atol=0)
+    torch.testing.assert_close(mel.log_mel_spectrogram_batch(waves, n_mels)[1], single,
+                               rtol=0, atol=0)
+    assert mel.log_mel_raw.launches == 0
+
+
 def test_wrappers_raise_off_the_cpu_without_cuda():
     """A tensor that is neither on the CPU nor on a CUDA device (here
     PyTorch's shape-only "meta" device) is refused before any build or
@@ -145,6 +176,8 @@ def test_wrappers_raise_off_the_cpu_without_cuda():
         beam_permute.beam_permute_cache(k, v, idx)
     with pytest.raises(ValueError, match="CUDA device"):
         beam_permute.beam_permute_cache_inplace(k, v, idx.reshape(3, 5), 5)
+    with pytest.raises(ValueError, match="CUDA device"):
+        mel.log_mel_raw(torch.empty((1, 480000), device=meta))
 
 
 @pytest.mark.cuda
@@ -243,3 +276,36 @@ def test_beam_permute_kernel_matches_plain_on_cuda(cuda_device, dtype, shape):
     got = beam_permute.beam_permute_cache_inplace(k, v, src, 5)
     torch.cuda.synchronize()
     assert got[0] is k and torch.equal(k, want[0]) and torch.equal(v, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_log_mel_kernel_matches_plain_on_cuda(cuda_device, n_mels):
+    """Kernel C against its plain version on the card, TF32 off: a 30 s
+    window, a 7.3 s one zero-padded to 30 s and silence, as one batch and
+    one window alone, at 80 and 128 mel bands. After whisper's
+    normalization (values of order 1) within 1e-4: the same f32 products
+    summed in another order. Silence is -10 exactly (the 1e-10 clamp).
+    Wrong types and shapes raise."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        waves = _mel_windows(cuda_device)
+        launches = mel.log_mel_raw.launches
+        got = mel.log_mel_raw(waves, n_mels)
+        want = mel._log_mel_plain(waves, n_mels)
+        one = mel.log_mel_spectrogram(waves[1], n_mels)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert mel.log_mel_raw.launches == launches + 2
+    assert got.shape == want.shape == (3, 3000, n_mels)
+    assert bool((got[2] == -10.0).all())
+    torch.testing.assert_close(mel._finalize(got), mel._finalize(want), atol=1e-4, rtol=0)
+    torch.testing.assert_close(one, mel._finalize(want[1:2])[0].T, atol=1e-4, rtol=0)
+    with pytest.raises(TypeError, match="f32"):
+        mel.log_mel_raw(waves.double(), n_mels)
+    with pytest.raises(ValueError, match="contiguous"):
+        mel.log_mel_raw(waves[:, ::2], n_mels)
+    with pytest.raises(ValueError, match="reflect"):
+        mel.log_mel_raw(waves[:, :100].contiguous(), n_mels)

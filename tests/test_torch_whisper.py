@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_slice import _one_torch_thread  # noqa: F401  (autouse)
 from whisper_nemo_tpu.engine.quantize import quantize_whisper_params as jax_quantize
 from whisper_nemo_tpu.models import whisper as jw
 from whisper_nemo_tpu.models import whisper_stacked as jws

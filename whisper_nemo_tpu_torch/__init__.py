@@ -7,14 +7,18 @@ or of the JAX package; the few jax-free host modules it needs
 (``text/``, ``vad/binarize.py``, the host text modules of ``align/``) are
 carried as copies.
 
-What runs: batched Whisper ASR (``asr.faster_whisper_api``), beam 5 by
-default or greedy, and word alignment of its segments (``align``:
-wav2vec2 emissions, batched CTC Viterbi), with five hand-written CUDA
-kernels for Hopper built from ``csrc/`` at first use (``ops/_build.py``):
-decode-step cross-attention (``ops/cross_decode.py``), encoder
-self-attention (``ops/attention.py``), the batched Viterbi
-(``ops/ctc.py``), beam decode self-attention over an ancestry map
-(``ops/self_decode.py``) and the beam cache permute
+What runs: Whisper ASR through the faster-whisper facade
+(``asr.faster_whisper_api``), batched or sequential (timestamps, the
+temperature ladder, conditioning on the previous text, language
+detection), beam 5 by default or greedy; the openai-whisper facade
+(``asr.openai_api``) and streaming (``engine.streaming``) over the
+sequential path; and word alignment of the segments (``align``: wav2vec2
+emissions, batched CTC Viterbi). Six hand-written CUDA kernels for Hopper
+build from ``csrc/`` at first use (``ops/_build.py``): decode-step
+cross-attention (``ops/cross_decode.py``), encoder self-attention
+(``ops/attention.py``), the single-window log-mel (``ops/mel.py``), the
+batched Viterbi (``ops/ctc.py``), beam decode self-attention over an
+ancestry map (``ops/self_decode.py``) and the beam cache permute
 (``ops/beam_permute.py``, an op no path calls).
 """
 

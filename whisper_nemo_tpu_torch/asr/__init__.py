@@ -1,5 +1,7 @@
-"""faster-whisper-compatible ASR facade."""
+"""ASR facades: faster-whisper's (batched and sequential) and
+openai-whisper's."""
 
-from .faster_whisper_api import BatchedInferencePipeline, WhisperModel
+from .faster_whisper_api import BatchedInferencePipeline, WhisperModel, Word
+from .openai_api import load_model
 
-__all__ = ["BatchedInferencePipeline", "WhisperModel"]
+__all__ = ["BatchedInferencePipeline", "WhisperModel", "Word", "load_model"]

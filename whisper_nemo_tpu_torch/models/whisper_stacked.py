@@ -7,7 +7,8 @@ cache is ``[L, B, H, D, S]`` (positions last). The layer loop is a Python
 loop; kernels A and E receive the whole stack and the layer index. The
 cache is updated in place. Beam search runs the same step on ``B·K``
 rows with an ancestry map (kernel E) and the window's cross-KV shared by
-its ``K`` lanes (kernel A).
+its ``K`` lanes (kernel A). A left-padded conditioning prompt is masked
+per row and position-shifted (``kv_valid``, ``pos_offset``).
 """
 
 from __future__ import annotations
@@ -139,14 +140,24 @@ def prefill_cache_stacked(
     cross_kv: dict,
     dims: WhisperDims,
     dtype,
+    kv_valid: Optional[torch.Tensor] = None,  # [B, S] bool
+    pos_offset: Optional[torch.Tensor] = None,  # [B] int
 ) -> Tuple[torch.Tensor, dict]:
     """All prompt positions in one teacher-forced pass: writes the cache at
     positions ``[0, P)`` and returns the final-norm hidden states
-    ``[B, P, D]``."""
+    ``[B, P, D]``. A left-padded prompt passes ``kv_valid`` (its pad slots
+    False), which hides those slots from self-attention, and
+    ``pos_offset`` (each row's pad count), which shifts the row's learned
+    positions so that its first real token reads position 0."""
     dec = params["decoder"]
     b, p_len = prompt.shape
-    x = embed_tokens(dec, prompt, torch.arange(p_len, device=prompt.device)[None], dtype)
+    positions = torch.arange(p_len, device=prompt.device)[None]
+    if pos_offset is not None:
+        positions = torch.clamp(positions - pos_offset[:, None], min=0)
+    x = embed_tokens(dec, prompt, positions, dtype)
     mask = causal_mask(p_len, prompt.device)
+    if kv_valid is not None:
+        mask = mask.masked_fill(~kv_valid[:, None, None, :p_len], float("-inf"))
     n_head = dims.n_text_head
     for li, blk in enumerate(dec["layers"]):
         xn = _layer_norm(blk["ln1"], x)
@@ -179,6 +190,8 @@ def decode_step_stacked(
     dtype,
     return_hidden: bool = False,
     anc: Optional[torch.Tensor] = None,
+    kv_valid: Optional[torch.Tensor] = None,  # [B, S] bool
+    pos_offset: Optional[torch.Tensor] = None,  # [B] int
 ) -> Tuple[torch.Tensor, dict]:
     """One decode step at position ``pos``: f32 logits ``[B, V]`` (or the
     final-norm hidden ``[B, D]`` with ``return_hidden``) and the cache,
@@ -186,13 +199,19 @@ def decode_step_stacked(
     Beam search passes ``anc`` (``[W, K, S]`` int32, ``B = W·K`` rows):
     self-attention then selects each position's lane through it (kernel
     E) over the never-reordered cache, and a window's ``K`` lanes share
-    its cross-KV."""
+    its cross-KV. ``kv_valid`` and ``pos_offset`` serve a left-padded
+    prompt, as in :func:`prefill_cache_stacked`: the mask becomes one row
+    per batch row."""
     dec = params["decoder"]
     b = token.shape[0]
-    x = embed_tokens(dec, token, pos, dtype)[:, None, :]
+    position = pos if pos_offset is None else torch.clamp(pos - pos_offset, min=0)
+    x = embed_tokens(dec, token, position, dtype)[:, None, :]
     cache_len = cache["k"].shape[-1]
     visible = torch.arange(cache_len, device=token.device) <= pos
-    mask = torch.where(visible, 0.0, float("-inf"))[None, None, None, :]
+    if kv_valid is None:
+        mask = torch.where(visible, 0.0, float("-inf"))[None, None, None, :]
+    else:
+        mask = torch.where(visible[None] & kv_valid, 0.0, float("-inf"))[:, None, None, :]
     kv_dec, k_len, bits = cross_kv["kv_dec"], cross_kv["_k_len"], cross_kv["_bits"]
     beam = 1 if anc is None else anc.shape[1]
     n_head = dims.n_text_head

@@ -4,16 +4,35 @@ Counterpart of ``whisper_nemo_tpu/ops/mel.py``: the windowed DFT and the
 mel filter bank as two matrix products with an elementwise square in
 between, then whisper's dynamic-range compression (n_fft 400, hop 160,
 periodic Hann, slaney mel). The batched form is plain tensor work, as it
-was XLA work in the JAX package; the JAX package's single-window Pallas
-tile (``_log_mel_pallas``) is not ported yet.
+was XLA work in the JAX package.
+
+Kernel C (``csrc/log_mel.cu``) replaces the TPU kernel
+``whisper_nemo_tpu/ops/mel.py:_log_mel_pallas``, which the single-window
+:func:`log_mel_spectrogram` runs (the sequential path's window, language
+detection). The function needs little: a 400-point real FFT a frame and
+a bank that touches each bin at most twice, so it is bound by its bytes
+(the waveform in and the mel out, 2.9 MB a 30 s window at 80 mels). This
+kernel runs the DFT as two dense f32 products instead (1.06 GFLOP a
+window), with TF32 off, as the JAX reference on the CPU is full f32; an
+FFT is work for later. One CTA per tile of 32 frames reads the frames
+straight from the waveform, reflect padding by index, so the ``[3000,
+400]`` frame matrix is never built; the cosine and sine bases stream through shared
+memory in chunks of 8 rows, ``re`` and ``im`` accumulate in registers
+with f32 FMAs, and the power spectrum goes to shared memory for the mel
+product and ``log10``. ``_log_mel_plain`` is its plain version: the CPU
+path and the kernel's oracle. ``_finalize`` stays plain torch, as it is
+XLA outside the Pallas call in the JAX package.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
+
+from . import _build
 
 SAMPLE_RATE = 16000
 N_FFT = 400
@@ -91,15 +110,20 @@ def _finalize(logmel: torch.Tensor) -> torch.Tensor:
     return (torch.maximum(logmel, maxval - 8.0) + 4.0) / 4.0
 
 
-def log_mel_spectrogram_batch(
-    waveforms: torch.Tensor, n_mels: int = 80
-) -> torch.Tensor:
-    """``[B, T]`` equal-length waveforms -> ``[B, n_mels, T // hop]`` f32
-    log-mel, normalized per window, on the waveforms' device."""
-    dev = waveforms.device
-    cos_m, sin_m, fb = (
-        torch.from_numpy(c).to(dev) for c in _dft_mel_constants(N_FFT, n_mels)
+@functools.lru_cache(maxsize=8)
+def _device_constants(device: torch.device, n_mels: int):
+    """C, S and the mel bank as contiguous f32 tensors on ``device``,
+    made once (the numpy mel bank is a transpose)."""
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(c)).to(device) for c in _dft_mel_constants(N_FFT, n_mels)
     )
+
+
+def _log_mel_plain(waveforms: torch.Tensor, n_mels: int) -> torch.Tensor:
+    """``[B, T]`` waveforms -> un-normalized ``log10(max(mel, 1e-10))``
+    ``[B, T // hop, n_mels]`` f32: reflect-pad by ``n_fft / 2``, frames at
+    hop 160, ``frames·C``, ``frames·S``, ``re² + im²``, ``· fb``."""
+    cos_m, sin_m, fb = _device_constants(waveforms.device, n_mels)
     w = waveforms.float()
     n_frames = w.shape[-1] // HOP_LENGTH
     padded = torch.nn.functional.pad(
@@ -109,5 +133,71 @@ def log_mel_spectrogram_batch(
     re = frames @ cos_m
     im = frames @ sin_m
     mel = (re * re + im * im) @ fb
-    logmel = torch.log10(torch.clamp(mel, min=1e-10))
-    return _finalize(logmel).transpose(-1, -2)
+    return torch.log10(torch.clamp(mel, min=1e-10))
+
+
+@functools.lru_cache(maxsize=1)
+def _kernel():
+    fn = _build.load("log_mel").wnt_log_mel
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _log_mel_cuda(waveforms: torch.Tensor, n_mels: int) -> torch.Tensor:
+    """Launch kernel C on ``[B, T]`` f32 CUDA waveforms: the contract of
+    :func:`_log_mel_plain`."""
+    if waveforms.device.type != "cuda":
+        raise ValueError(f"kernel C takes a waveform on a CUDA device, got {waveforms.device}")
+    if waveforms.dtype != torch.float32:
+        raise TypeError(f"kernel C takes an f32 waveform, got {waveforms.dtype}")
+    if not waveforms.is_contiguous():
+        raise ValueError("kernel C takes a contiguous waveform")
+    if waveforms.ndim != 2 or not 0 < waveforms.shape[0] <= 65535 or waveforms.shape[1] <= N_FFT // 2:
+        raise ValueError(
+            f"kernel C takes [B, T] waveforms with 0 < B <= 65535 and T > {N_FFT // 2}"
+            f" (reflect padding), got {tuple(waveforms.shape)}"
+        )
+    if not 0 < n_mels <= 1024:
+        raise ValueError(f"kernel C takes 1 to 1024 mel bands, got {n_mels}")
+    cos_m, sin_m, fb = _device_constants(waveforms.device, n_mels)
+    b, t = waveforms.shape
+    n_frames = t // HOP_LENGTH
+    out = torch.empty((b, n_frames, n_mels), dtype=torch.float32, device=waveforms.device)
+    rc = _kernel()(
+        waveforms.data_ptr(), cos_m.data_ptr(), sin_m.data_ptr(), fb.data_ptr(), out.data_ptr(),
+        b, t, n_frames, n_mels, torch.cuda.current_stream(waveforms.device).cuda_stream,
+    )
+    _build.check(rc, "log_mel")
+    log_mel_raw.launches += 1
+    return out
+
+
+def log_mel_raw(waveforms: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
+    """Un-normalized log10 mel ``[B, T // hop, n_mels]`` f32 of ``[B, T]``
+    f32 waveforms: kernel C on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if waveforms.device.type == "cpu":
+        return _log_mel_plain(waveforms, n_mels)
+    return _log_mel_cuda(waveforms, n_mels)
+
+
+log_mel_raw.launches = 0
+
+
+def log_mel_spectrogram(waveform: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
+    """Log-mel features ``[n_mels, T // hop]`` of one 16 kHz waveform
+    ``[T]`` (already padded or trimmed, whisper's 30 s = 480000), on the
+    waveform's device: kernel C on a CUDA tensor, then whisper's
+    dynamic-range compression."""
+    logmel = log_mel_raw(waveform.float().contiguous()[None], n_mels)
+    return _finalize(logmel)[0].transpose(0, 1)
+
+
+def log_mel_spectrogram_batch(
+    waveforms: torch.Tensor, n_mels: int = 80
+) -> torch.Tensor:
+    """``[B, T]`` equal-length waveforms -> ``[B, n_mels, T // hop]`` f32
+    log-mel, normalized per window, on the waveforms' device (plain
+    tensor work on every device)."""
+    return _finalize(_log_mel_plain(waveforms, n_mels)).transpose(-1, -2)
