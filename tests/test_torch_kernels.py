@@ -182,25 +182,75 @@ def test_wrappers_raise_off_the_cpu_without_cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
-def test_kernels_match_plain_on_cuda(cuda_device, bits):
-    """Kernels A and B against their plain versions on the card, at small
-    shapes with a ragged length (chip_smoke.py checks the main path's
-    shapes). A: 5e-3 per unit of v_scale (outputs are weighted sums of
-    int8 values up to 127); B: 1e-2 on bf16 outputs of order 1."""
-    g = torch.Generator(device=cuda_device).manual_seed(bits)
-    rows = 128 if bits == 8 else 64
-    kv = torch.randint(-127, 128, (2, 3, 4, rows, 256), device=cuda_device, generator=g,
+@pytest.mark.parametrize("windows,beam", [(1, 1), (1, 5), (3, 2), (3, 8)])
+@pytest.mark.parametrize("kp,k_len,cluster", [(1536, 1500, None), (1536, 1400, None),
+                                              (1536, 1, None), (1536, 1536, 2),
+                                              (128, 128, None), (128, 77, 4), (256, 200, 8)])
+def test_kernels_match_plain_on_cuda(cuda_device, bits, windows, beam, kp, k_len, cluster):
+    """Kernel A against its plain version on the card, at both layers of
+    the stack: one window and three, beam 1 to 8, bits 8 and 4; k_len of
+    1 (every other CTA of the cluster holds only masked positions), inside
+    the last CTA's slice, and equal to Kp; Kp = 128 (16 positions a CTA);
+    cluster sizes 2, 4 and 8 beside the wrapper's choice; bf16 q and
+    non-unit k_scale/v_scale, so the in-kernel fold is checked. Within
+    5e-3 per unit of v_scale on outputs that are weighted sums of int8
+    values up to 127 (both round q and the weights to bf16; f32 sums in
+    another order). One launch a call; out-of-range arguments raise."""
+    g = torch.Generator(device=cuda_device).manual_seed(bits * 1000 + kp + k_len)
+    h, d = 4, 64
+    rows = 2 * d if bits == 8 else d
+    kv = torch.randint(-127, 128, (2, windows, h, rows, kp), device=cuda_device, generator=g,
                        dtype=torch.int8)
-    qs = torch.randn((6, 4, 64), device=cuda_device, generator=g) * 0.01
+    q = torch.randn((windows * beam, 1, h, d), device=cuda_device, generator=g).bfloat16()
+    k_scale = 0.005 + 0.05 * torch.rand((h, d), device=cuda_device, generator=g)
+    v_scale = (0.5 + torch.rand((h, d), device=cuda_device, generator=g)) / 127
+    launches = cross_decode.cross_attention_decode_layered.launches
     for layer in (0, 1):
-        got = cross_decode._cross_attention_decode_cuda(qs, kv, layer, 200, bits, 2)
-        ref = cross_decode._cross_attention_decode_plain(qs, kv, layer, 200, bits, 2)
-        torch.testing.assert_close(got, ref, atol=5e-3 * 127, rtol=0)
-    q, k, v = (torch.randn((2, 150, 3, 64), device=cuda_device, generator=g).bfloat16()
+        got = cross_decode._cross_attention_decode_cuda(q, kv, k_scale, v_scale, layer, k_len,
+                                                        bits, beam, cluster)
+        ref = cross_decode._cross_attention_decode_plain(cross_decode.fold_q(q, k_scale), kv,
+                                                         layer, k_len, bits, beam)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got / v_scale, ref, atol=5e-3 * 127, rtol=0)
+    public = cross_decode.cross_attention_decode_layered(q, kv, k_scale, v_scale, 1, k_len,
+                                                         bits, beam)
+    torch.testing.assert_close(public[:, 0] / v_scale, ref, atol=5e-3 * 127, rtol=0)
+    assert cross_decode.cross_attention_decode_layered.launches == launches + 3
+    with pytest.raises(ValueError, match="shapes"):
+        cross_decode._cross_attention_decode_cuda(q, kv, k_scale, v_scale, 2, k_len, bits, beam)
+    with pytest.raises(ValueError, match="shapes"):
+        cross_decode._cross_attention_decode_cuda(q, kv, k_scale, v_scale, 0, kp + 1, bits, beam)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 129, 1499, 1500])
+@pytest.mark.parametrize("b,h", [(1, 3), (1, 16), (3, 3), (3, 16)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_encoder_attention_kernel_matches_plain_on_cuda(cuda_device, t, b, h, dtype):
+    """Kernel B against its plain version on the card: lengths around the
+    128-row tiles (ragged query and key tiles, one key), batch 1 and 3,
+    3 and 16 heads; bf16 in and out, and f32 in (rounded to bf16 for the
+    tensor cores) with f32 out. Inputs are N(0, 1), so the outputs' RMS
+    falls from 1 at T=1 to about sqrt(e/T), 0.043 at T=1500, and the
+    absolute bound 1e-2 is a quarter of that; so the error is also held
+    within 0.2 of the outputs' RMS at every T. Both come from the
+    rounding: bf16 P in the PV product against bf16 normalized weights,
+    q and k rounded to bf16 after the D^-1/4 scale in the plain version,
+    bf16 outputs (an emulation of the kernel's rounding on the CPU reads
+    at most 0.09 of the RMS at these shapes)."""
+    g = torch.Generator(device=cuda_device).manual_seed(t * 7 + b * 3 + h)
+    q, k, v = (torch.randn((b, t, h, 64), device=cuda_device, generator=g).to(dtype)
                for _ in range(3))
-    got = attention._encoder_attention_cuda(q, k, v)
-    torch.testing.assert_close(got.float(), attention._xla_attention(q, k, v).float(),
-                               atol=1e-2, rtol=0)
+    launches = attention.encoder_attention.launches
+    got = attention.encoder_attention(q, k, v)
+    want = attention._xla_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.encoder_attention.launches == launches + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=0)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 0.2 * float(want.float().pow(2).mean().sqrt()), err
 
 
 @pytest.mark.cuda

@@ -1,61 +1,157 @@
-// Kernel B: non-causal flash attention forward for the Whisper encoder.
+// Kernel B: non-causal flash attention forward for the Whisper encoder and
+// the wav2vec2 aligner, on Hopper's wgmma and TMA.
 //
 // Replaces whisper_nemo_tpu/ops/attention.py:_flash_attention (the library
 // Pallas TPU flash-attention kernel it calls, with T padded and the pad
 // masked by segment ids).
 //
 // out[b, t, h, :] = softmax_s(q[b, t, h, :] . k[b, s, h, :] / sqrt(D)) v[b, s, h, :]
-// on [B, T, H, D] tensors, D = 64, bf16 or f32 in and out.
+// on [B, T, H, D] bf16 tensors, D = 64; the output in bf16 or f32.
 //
 // Bound: tensor-core FLOPs. At the encoder's T = 1500 each (b, h) does
 // 4*T*T*D = 576 MFLOP over 768 KB of bf16 operands, far above the card's
-// ridge; the plain version is instead bound by the [B, H, T, T] f32 score
-// tensor it writes and reads (4.6 GB at B = 32).
-// Design: one CTA of 4 warps per (64-query tile, head, batch row); each warp
-// owns 16 query rows. The CTA walks 64-key tiles staged in shared memory;
-// QK^T and PV run on mma.sync m16n8k16 (bf16 operands, f32 accumulation)
-// with an online f32 softmax, so the scores never leave registers. The
-// ragged last tile (T = 1500 is not a multiple of 64) is zero-filled on
-// load and masked to -inf before the softmax. f32 inputs are rounded to
-// bf16 for the tensor cores, as the TPU's default matmul precision does.
-// Single-buffered and synchronous: TMA/wgmma pipelining is later work.
+// ridge. At D = 64 the softmax's exponentials take about as much SM time as
+// the two products, so the products run on wgmma while other warpgroups
+// of the SM do their softmax.
+// Design: one CTA of four warpgroups per (192-query tile, head, batch
+// row). Warp 0 is the producer: one thread issues TMA loads of the Q tile
+// and of 128-key K and V tiles into a ring of kStages stages, each with a
+// full/empty mbarrier pair. The three consumer warpgroups own 64 query
+// rows each: S = Q K^T is four wgmma m64n128k16 with Q and K read from
+// shared memory (K-major, 128-byte swizzle), the online softmax runs in
+// f32 in the exp2 domain on the S accumulators, P is packed to bf16 in
+// registers as the A operand of eight wgmma m64n64k16 that add P V into
+// the output accumulators, with V read as it lies ([keys][D], MN-major:
+// the transpose bit). The tensor maps cover the [B, T, H, D] layout as it
+// lies (dims D, H, T, B; boxes of 64 x 1 x rows x 1): one D = 64 bf16 row
+// is one 128-byte swizzle row, and no transposed copy exists. TMA
+// zero-fills rows past T; keys past T are masked to -inf before the max,
+// and the ragged last query tile stores only rows < T. setmaxnreg gives
+// the consumers 160 registers and the producer warpgroup 24; one CTA
+// (88 KB of shared memory) runs per SM. Three consumer warpgroups rather
+// than two keep the tensor cores busy while each does its softmax; a
+// third K/V stage, or overlapping a warpgroup's softmax with its next
+// Q K^T, did not run faster on the H100.
+//
+// The tensor maps are encoded on the host in the C entry point, with
+// cuTensorMapEncodeTiled looked up through cudaGetDriverEntryPointByVersion,
+// so the library needs no -lcuda.
 
-#include <cuda_runtime.h>
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kD = 64;            // head dim
-constexpr int kBM = 64;           // queries per CTA
-constexpr int kBN = 64;           // keys per tile
-constexpr int kThreads = 128;     // 4 warps x 16 query rows
-constexpr int kLds = kD + 8;      // padded smem row (bf16 elements)
+constexpr int kD = 64;          // head dim: one 128-byte bf16 row
+constexpr int kConsumers = 3;   // consumer warpgroups, 64 query rows each
+constexpr int kBM = 64 * kConsumers;  // queries per CTA
+constexpr int kBN = 128;        // keys per tile
+constexpr int kStages = 2;      // K/V ring depth
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr uint32_t kTileBytes = kBN * kD * 2;  // one Q, K or V tile: 16 KB
+
+struct Smem {  // 1024-byte aligned: the 128-byte swizzle's atom
+  __nv_bfloat16 q[kBM * kD];  // kConsumers boxes of 64 rows
+  __nv_bfloat16 k[kStages][kBN * kD];
+  __nv_bfloat16 v[kStages][kBN * kD];
+  uint64_t q_full;
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// One box (64 x 1 x rows x 1 elements) at (0, h, t, b) into `dst`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int h, int t, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+        "r"(0), "r"(h), "r"(t), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1).
+// Offsets in bytes; the hardware takes them in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Keeps the compiler from moving accesses of accumulator registers across
+// the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[0:64] (+)= A[64x16] . B[128x16]^T, both bf16 K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[0:32] += A[64x16] . B[16x64], A bf16 in registers, B bf16 MN-major in
+// shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Eight consecutive head-dim values of one row as bf16 (zeros past T).
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p, bool valid) {
-  return valid ? *reinterpret_cast<const uint4*>(p) : make_uint4(0, 0, 0, 0);
-}
-__device__ __forceinline__ uint4 load8(const float* p, bool valid) {
-  if (!valid) return make_uint4(0, 0, 0, 0);
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  return make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w),
-                    pack_bf16x2(b.x, b.y), pack_bf16x2(b.z, b.w));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
@@ -65,173 +161,205 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// Stage rows [t0, t0 + 64) of one head into smem as [row][d] bf16, or
-// transposed as [d][row] when kTranspose (for V, so PV's B fragments are
-// contiguous pairs along the key axis).
-template <bool kTranspose, typename T>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* s, const T* base,
-                                           int t0, int n_rows, int row_stride) {
-  for (int c = threadIdx.x; c < kBM * (kD / 8); c += blockDim.x) {
-    const int r = c >> 3, d0 = (c & 7) * 8;
-    const bool valid = t0 + r < n_rows;
-    const uint4 v = load8(base + (int64_t)(t0 + r) * row_stride + d0, valid);
-    if (!kTranspose) {
-      *reinterpret_cast<uint4*>(s + r * kLds + d0) = v;
-    } else {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s[(d0 + i) * kLds + r] = e[i];
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-encoder_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, T* __restrict__ out,
-                         int n_t, int n_h, float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 sq[kBM * kLds];
-  __shared__ __align__(16) __nv_bfloat16 sk[kBN * kLds];
-  __shared__ __align__(16) __nv_bfloat16 svt[kD * kLds];
-
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads, 1)
+encoder_attention_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         OutT* __restrict__ out, int n_t, int n_h, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int m0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int row_stride = n_h * kD;
-  const int64_t head0 = (int64_t)b * n_t * row_stride + (int64_t)h * kD;
+  const int n_tiles = (n_t + kBN - 1) / kBN;
+  const int wg = threadIdx.x / 128;
 
-  stage_tile<false>(sq, q + head0, m0, n_t, row_stride);
-  __syncthreads();
-  uint32_t qa[kD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < kD / 16; ++ks) {
-    const __nv_bfloat16* p = sq + (warp * 16 + g) * kLds + ks * 16 + tig * 2;
-    qa[ks][0] = lds32(p);
-    qa[ks][1] = lds32(p + 8 * kLds);
-    qa[ks][2] = lds32(p + 8);
-    qa[ks][3] = lds32(p + 8 * kLds + 8);
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float o[kD / 8][4];
-#pragma unroll
-  for (int i = 0; i < kD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-
-  for (int n0 = 0; n0 < n_t; n0 += kBN) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    stage_tile<false>(sk, k + head0, n0, n_t, row_stride);
-    stage_tile<true>(svt, v + head0, n0, n_t, row_stride);
-    __syncthreads();
-
-    float s[kBN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kD / 16; ++ks) {
-        const __nv_bfloat16* p = sk + (nt * 8 + g) * kLds + ks * 16 + tig * 2;
-        const uint32_t kb[2] = {lds32(p), lds32(p + 8)};
-        mma_16816(s[nt], qa[ks], kb);
+  if (wg == 0) {  // producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&sm.q_full, kBM * kD * 2);
+      for (int c = 0; c < kConsumers; ++c)
+        tma_load(sm.q + c * 64 * kD, &q_map, &sm.q_full, h, m0 + 64 * c, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&sm.empty[s], ((j / kStages) - 1) & 1);
+        mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+        tma_load(sm.k[s], &k_map, &sm.full[s], h, j * kBN, b);
+        tma_load(sm.v[s], &v_map, &sm.full[s], h, j * kBN, b);
       }
     }
+  } else {  // consumer warpgroups: 64 query rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n");
+    const int tid = threadIdx.x - 128 * wg, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, tig = lane & 3;
+    const __nv_bfloat16* sq = sm.q + (wg - 1) * 64 * kD;
 
-    // scale into the exp2 domain, mask keys past T, online softmax
-    float mx[2] = {-INFINITY, -INFINITY};
+    float o[kD / 2];
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
+    for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};  // rows g, g + 8
+
+    mbar_wait(&sm.q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(&sm.full[s], (j / kStages) & 1);
+
+      // S = Q K^T: 64 x 128 per warpgroup, 16 head-dim channels a step
+      float sc[kBN / 2];
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + nt * 8 + tig * 2 + (j & 1);
-        s[nt][j] = col < n_t ? s[nt][j] * scale_log2 : -INFINITY;
-        mx[j >> 1] = fmaxf(mx[j >> 1], s[nt][j]);
+      for (int ks = 0; ks < kD / 16; ++ks)
+        wgmma_m64n128k16_ss(sc, smem_desc(sq + ks * 16, 16, 1024),
+                            smem_desc(sm.k[s] + ks * 16, 16, 1024), ks);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operands(sc);
+
+      // accumulator i: row g + 8 * ((i >> 1) & 1), key (i >> 2) * 8 + 2 * tig + (i & 1)
+      const int n0 = j * kBN;
+      if (n0 + kBN > n_t) {
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i)
+          if (n0 + (i >> 2) * 8 + 2 * tig + (i & 1) >= n_t) sc[i] = -INFINITY;
       }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float alpha[2], neg_m[2], rowsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // finite: key n0 < T is valid; m_run is kept in the exp2 domain
+        const float m_new = fmaxf(m_run[r], mx[r] * scale_log2);
+        alpha[r] = ex2(m_run[r] - m_new);
+        m_run[r] = m_new;
+        neg_m[r] = -m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        sc[i] = ex2(fmaf(sc[i], scale_log2, neg_m[(i >> 1) & 1]));
+        rowsum[(i >> 1) & 1] += sc[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rowsum[r];
+#pragma unroll
+      for (int i = 0; i < kD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      // O += P V: the S accumulator layout is the register A layout of P
+      uint32_t pa[kBN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        pa[kk][0] = pack_bf16x2(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)  // 16 keys = 16 rows of 128 bytes a step
+        wgmma_m64n64k16_rs(o, pa[kk], smem_desc(sm.v[s] + kk * 16 * kD, 1024, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operands(o);
+      mbar_arrive(&sm.empty[s]);
     }
-    float alpha[2], rowsum[2] = {0.f, 0.f};
+
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);  // finite: key n0 < T is valid
-      alpha[r] = exp2f(m_run[r] - m_new);
-      m_run[r] = m_new;
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     }
+    const int64_t row_stride = (int64_t)n_h * kD;
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
+    for (int r = 0; r < 2; ++r) {
+      const int t = m0 + (wg - 1) * 64 + warp * 16 + g + 8 * r;
+      if (t >= n_t) continue;
+      const float inv = 1.f / l_run[r];
+      OutT* dst = out + ((int64_t)b * n_t + t) * row_stride + (int64_t)h * kD + 2 * tig;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[nt][j] = exp2f(s[nt][j] - m_run[j >> 1]);
-        rowsum[j >> 1] += s[nt][j];
-      }
+      for (int n8 = 0; n8 < kD / 8; ++n8)
+        store2(dst + n8 * 8, o[4 * n8 + 2 * r] * inv, o[4 * n8 + 2 * r + 1] * inv);
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rowsum[r];
-#pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
-    }
-
-    // O += P V: the S accumulator layout is the A-fragment layout of P
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        const __nv_bfloat16* p = svt + (dt * 8 + g) * kLds + kk * 16 + tig * 2;
-        const uint32_t vb[2] = {lds32(p), lds32(p + 8)};
-        mma_16816(o[dt], pa, vb);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int t = m0 + warp * 16 + g + 8 * r;
-    if (t >= n_t) continue;
-    const float inv = 1.f / l_run[r];
-    T* dst = out + head0 + (int64_t)t * row_stride + tig * 2;
-#pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt)
-      store2(dst + dt * 8, o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int n_t, int n_h, cudaStream_t stream) {
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The [B, T, H, 64] bf16 tensor at `base` as dims (D, H, T, B), boxes of
+// 64 x 1 x rows x 1 with the 128-byte swizzle; rows past T read as zeros.
+bool make_map(CUtensorMap* map, const void* base, int B, int n_t, int n_h, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)n_h, (cuuint64_t)n_t, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)kD * 2, (cuuint64_t)n_h * kD * 2,
+                                 (cuuint64_t)n_t * n_h * kD * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kD, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename OutT>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int n_t, int n_h,
+           cudaStream_t stream) {
+  if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap maps[3];
+  if (!make_map(&maps[0], q, B, n_t, n_h, 64) || !make_map(&maps[1], k, B, n_t, n_h, kBN) ||
+      !make_map(&maps[2], v, B, n_t, n_h, kBN))
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(Smem) + 1024;  // + the 1024-byte alignment
+  const cudaError_t err = cudaFuncSetAttribute(
+      encoder_attention_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)kD);
   const dim3 grid((n_t + kBM - 1) / kBM, n_h, B);
-  encoder_attention_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), n_t, n_h, scale_log2);
+  encoder_attention_kernel<OutT><<<grid, kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<OutT*>(out), n_t, n_h, scale_log2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = f32. Returns a cudaError_t code (0 on success).
-extern "C" int wnt_encoder_attention(const void* q, const void* k,
-                                     const void* v, void* out, int B, int T,
-                                     int H, int D, int dtype, void* stream) {
+// q, k and v are [B, T, H, 64] bf16, 16-byte aligned; out is [B, T, H, 64]
+// bf16 (out_dtype 0) or f32 (out_dtype 1). Returns a cudaError_t code (0 on
+// success). Launches on `stream`, does not synchronise, allocates nothing.
+extern "C" int wnt_encoder_attention(const void* q, const void* k, const void* v, void* out,
+                                     int B, int T, int H, int D, int out_dtype, void* stream) {
   if (B < 1 || T < 1 || H < 1 || D != kD || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
+  if (out_dtype == 0)
     return launch<__nv_bfloat16>(q, k, v, out, B, T, H, (cudaStream_t)stream);
-  if (dtype == 1) return launch<float>(q, k, v, out, B, T, H, (cudaStream_t)stream);
+  if (out_dtype == 1) return launch<float>(q, k, v, out, B, T, H, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

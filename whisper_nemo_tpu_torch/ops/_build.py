@@ -19,6 +19,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
@@ -78,6 +80,13 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(_build(name)))
         return lib
+
+
+def stream(device) -> int:
+    """The raw pointer of PyTorch's current stream on a CUDA ``device``
+    (``torch.cuda.current_stream(device).cuda_stream`` without building
+    a Stream object: a few microseconds less per launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(rc: int, what: str) -> None:

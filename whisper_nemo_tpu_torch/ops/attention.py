@@ -7,12 +7,16 @@ for the decode self-attention cache.
 Kernel B (``csrc/encoder_attention.cu``) replaces the TPU kernel
 ``whisper_nemo_tpu/ops/attention.py:_flash_attention`` (the library Pallas
 flash attention it wraps). It serves unmasked self-attention, the Whisper
-encoder's, at D = 64. It is bound by tensor-core FLOPs (576 MFLOP per
-(batch, head) at T = 1500). One CTA per 64-query tile walks 64-key tiles
-through shared memory with mma.sync bf16 products and an online f32
-softmax, so the ``[B, H, T, T]`` scores (4.6 GB in f32 at B = 32) that
-the plain version materializes never exist. ``_xla_attention`` is its
-plain version: the CPU path and the kernel's oracle.
+encoder's and the wav2vec2 aligner's, at D = 64. It is bound by
+tensor-core FLOPs (576 MFLOP per (batch, head) at T = 1500). One CTA per
+192-query tile: a producer warp streams 128-key K and V tiles by TMA into
+a two-stage ring, and three consumer warpgroups run both products on
+wgmma with an online f32 softmax, so the ``[B, H, T, T]`` scores (4.6 GB
+in f32 at B = 32) that the plain version materializes never exist. Its operands
+are bf16; f32 callers' inputs are rounded to bf16 here (round to nearest,
+as the TPU's default matmul precision does) and their output stays f32.
+``_xla_attention`` is its plain version: the CPU path and the kernel's
+oracle.
 """
 
 from __future__ import annotations
@@ -52,28 +56,29 @@ def _kernel():
     return fn
 
 
-_KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_OUT_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
 def _encoder_attention_cuda(q, k, v):
-    """Launch kernel B on ``[B, T, H, 64]`` bf16 or f32 CUDA tensors."""
+    """Launch kernel B on ``[B, T, H, 64]`` bf16 or f32 CUDA tensors; the
+    output has the inputs' dtype."""
     b, t, h, d = q.shape
     if not (q.shape == k.shape == v.shape):
         raise ValueError(f"encoder attention needs equal shapes: {q.shape}, {k.shape}, {v.shape}")
     if d != 64:
         raise ValueError(f"encoder attention kernel takes head dim 64, got {d}")
-    if q.dtype not in _KERNEL_DTYPES or not (q.dtype == k.dtype == v.dtype):
+    if q.dtype not in _OUT_DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"encoder attention takes bf16 or f32, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.device.type != "cuda" or not (q.device == k.device == v.device):
         raise ValueError(f"kernel B takes q, k and v on one CUDA device, got {q.device}, {k.device}, {v.device}")
-    q, k, v = (x.contiguous() for x in (q, k, v))
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    q, k, v = (x.to(torch.bfloat16).contiguous() for x in (q, k, v))
     if any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("encoder attention loads 16-byte vectors: q, k and v must be 16-byte aligned")
-    out = torch.empty_like(q)
+        raise ValueError("kernel B's tensor maps need q, k and v 16-byte aligned")
     rc = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, t, h, d, _KERNEL_DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, t, h, d, _OUT_DTYPES[out.dtype],
+        _build.stream(q.device),
     )
     _build.check(rc, "encoder_attention")
     encoder_attention.launches += 1

@@ -90,7 +90,7 @@ def beam_permute_cache(
     k_out, v_out = torch.empty_like(k), torch.empty_like(v)
     rc = _kernels()[0](
         k.data_ptr(), v.data_ptr(), idx32.data_ptr(), k_out.data_ptr(), v_out.data_ptr(),
-        n_layers, rows, row_bytes, vec, torch.cuda.current_stream(k.device).cuda_stream,
+        n_layers, rows, row_bytes, vec, _build.stream(k.device),
     )
     _build.check(rc, "beam_permute")
     beam_permute_cache.launches += 1
@@ -118,7 +118,7 @@ def beam_permute_cache_inplace(
         raise ValueError(f"beam permute: src {tuple(src.shape)} for {rows} rows of beam {beam}")
     rc = _kernels()[1](
         k.data_ptr(), v.data_ptr(), src32.data_ptr(), n_layers, rows // beam, beam,
-        row_bytes, vec, torch.cuda.current_stream(k.device).cuda_stream,
+        row_bytes, vec, _build.stream(k.device),
     )
     _build.check(rc, "beam_permute_inplace")
     beam_permute_cache_inplace.launches += 1

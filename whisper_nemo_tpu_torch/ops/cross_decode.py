@@ -10,11 +10,15 @@ the query (K) and the output (V), so nothing is dequantized in memory.
 Kernel A (``csrc/cross_decode.cu``) replaces the TPU kernel
 ``whisper_nemo_tpu/ops/cross_decode.py:cross_attention_decode_layered``.
 It is bound by device memory: each step reads every window's K|V^T block
-once (2.4 GB at medium.en, batch 32) for 2 FLOPs a byte. One CTA per
-(head, window) streams its block in two coalesced passes, shares it
-between the window's beam lanes, keeps the logits in shared memory, and
-takes the layer as an offset into the full stack, so no per-layer copy
-is made. ``_cross_attention_decode_plain`` is the same function in plain
+once (2.4 GB at medium.en, batch 32) for 2 FLOPs a byte. A thread-block
+cluster of CTAs per (head, window) splits the positions, each CTA issuing
+all its bytes at once; the softmax stays exact across the split through
+two exchanges of per-lane maxima and sums in distributed shared memory,
+and the partial outputs are summed across the cluster in rank order. The
+beam lanes of a window share the reads, the scale fold (q by k_scale and
+D^-½, the output by v_scale) runs in the kernel, so a call is one launch,
+and the layer is an offset into the full stack, so no per-layer copy is
+made. ``_cross_attention_decode_plain`` is the same function in plain
 PyTorch: the CPU path and the kernel's oracle.
 """
 
@@ -105,38 +109,79 @@ def _cross_attention_decode_plain(qs, kv_dec, layer, k_len, bits, beam):
     return out.reshape(bq, h, d)
 
 
+def fold_q(q, k_scale):
+    """The query as the plain version takes it: ``q [W·beam, 1, H, D]``
+    in f32 times ``k_scale · D^-½`` (``[W·beam, H, D]``)."""
+    return (q[:, 0].float() * (k_scale * q.shape[-1] ** -0.5)[None]).contiguous()
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel():
     fn = _build.load("cross_decode").wnt_cross_decode
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _cross_attention_decode_cuda(qs, kv_dec, layer, k_len, bits, beam):
-    """Launch kernel A: same contract as ``_cross_attention_decode_plain``."""
-    bq, h, d = qs.shape
+_Q_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _cluster_size(windows: int, heads: int, kp: int, sms: int) -> int:
+    """CTAs that split one (head, window): enough for about two CTAs per
+    SM across the ``windows · heads`` pairs on a card of ``sms`` SMs,
+    between 2 and 8 (the portable cluster), and enough that a CTA holds at
+    most 1024 positions. On the H100 (132 SMs) one window (16 pairs) takes
+    8; the batched decode's 32 windows take 2 (``chip_smoke.py`` phase 3
+    times 2, 4 and 8 at both)."""
+    c = min(8, max(2, -(-2 * sms // (windows * heads))))
+    return max(c, -(-kp // 1024))
+
+
+def _cross_attention_decode_cuda(q, kv_dec, k_scale, v_scale, layer, k_len, bits, beam,
+                                 cluster=None):
+    """Launch kernel A: ``q [W·beam, 1, H, D]`` (bf16 or f32), this
+    layer's ``k_scale``/``v_scale`` ``[H, D]`` f32 -> ``[W·beam, H, D]``
+    f32, v_scale applied; the same function as
+    ``_cross_attention_decode_plain(fold_q(q, k_scale), ...) · v_scale``.
+    ``cluster`` overrides :func:`_cluster_size` (1-8)."""
+    bq, _, h, d = q.shape
     n_layers, n_windows, kh, rows, kp = kv_dec.shape
-    if qs.dtype != torch.float32 or kv_dec.dtype != torch.int8:
-        raise TypeError(f"cross decode takes f32 q and int8 KV, got {qs.dtype}, {kv_dec.dtype}")
-    if qs.device.type != "cuda" or kv_dec.device != qs.device:
-        raise ValueError(f"kernel A takes q and KV on one CUDA device, got {qs.device}, {kv_dec.device}")
-    if not (qs.is_contiguous() and kv_dec.is_contiguous()) or kv_dec.data_ptr() % 4:
-        raise ValueError("cross decode takes contiguous q and KV, the KV 4-byte aligned")
+    if q.dtype not in _Q_DTYPES or kv_dec.dtype != torch.int8:
+        raise TypeError(f"cross decode takes bf16 or f32 q and int8 KV, got {q.dtype}, {kv_dec.dtype}")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise TypeError(f"cross decode takes f32 scales, got {k_scale.dtype}, {v_scale.dtype}")
+    if q.device.type != "cuda" or any(x.device != q.device for x in (kv_dec, k_scale, v_scale)):
+        raise ValueError(
+            f"kernel A takes q, KV and scales on one CUDA device, got {q.device}, {kv_dec.device},"
+            f" {k_scale.device}, {v_scale.device}"
+        )
+    if not all(x.is_contiguous() for x in (q, kv_dec, k_scale, v_scale)) or kv_dec.data_ptr() % 16:
+        raise ValueError("cross decode takes contiguous q, KV and scales, the KV 16-byte aligned")
+    if cluster is None:
+        cluster = _cluster_size(n_windows, h, kp, _sms(q.device.index))
     if (
-        bq != n_windows * beam or kh != h
-        or rows != (2 * d if bits == 8 else d) or kp % 4 or d % 4
-        or not 0 <= layer < n_layers or not 0 < k_len <= kp
+        bq != n_windows * beam or kh != h or q.shape[1] != 1
+        or rows != (2 * d if bits == 8 else d) or kp % 32 or d != 64
+        or k_scale.shape != (h, d) or v_scale.shape != (h, d)
+        or not 0 <= layer < n_layers or not 0 < k_len <= kp or not 1 <= beam <= 8
+        or not 1 <= cluster <= 8
     ):
         raise ValueError(
-            f"cross decode shapes: q {tuple(qs.shape)}, KV {tuple(kv_dec.shape)},"
-            f" beam {beam}, bits {bits}, layer {layer}, k_len {k_len}"
+            f"cross decode shapes: q {tuple(q.shape)}, KV {tuple(kv_dec.shape)}, scales"
+            f" {tuple(k_scale.shape)}, beam {beam}, bits {bits}, layer {layer}, k_len {k_len},"
+            f" cluster {cluster}"
         )
-    out = torch.empty((bq, h, d), dtype=torch.float32, device=qs.device)
+    out = torch.empty((bq, h, d), dtype=torch.float32, device=q.device)
     rc = _kernel()(
-        qs.data_ptr(), kv_dec.data_ptr(), out.data_ptr(),
-        n_layers, n_windows, h, d, kp, k_len, layer, beam, bits,
-        torch.cuda.current_stream(qs.device).cuda_stream,
+        q.data_ptr(), kv_dec.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
+        n_layers, n_windows, h, d, kp, k_len, layer, beam, bits, _Q_DTYPES[q.dtype], cluster,
+        _build.stream(q.device),
     )
     _build.check(rc, "cross_decode")
     cross_attention_decode_layered.launches += 1
@@ -154,16 +199,13 @@ def cross_attention_decode_layered(
     beam: int = 1,
 ) -> torch.Tensor:
     """Single-query quantized cross-attention of layer ``layer`` ->
-    ``[B·beam, 1, H, D]`` f32. Kernel A on a CUDA tensor, the plain
-    version on a CPU tensor. The ``beam`` lanes of a window (row-major,
-    ``[w0 lanes.., w1 lanes..]``) share its K/V."""
-    d = q.shape[-1]
-    qs = (q[:, 0].float() * (k_scale * d**-0.5)[None]).contiguous()
+    ``[B·beam, 1, H, D]`` f32. Kernel A on a CUDA tensor (one launch), the
+    plain version on a CPU tensor. The ``beam`` lanes of a window
+    (row-major, ``[w0 lanes.., w1 lanes..]``) share its K/V."""
     if q.device.type == "cpu":
-        out = _cross_attention_decode_plain(qs, kv_dec, layer, k_len, bits, beam)
-    else:
-        out = _cross_attention_decode_cuda(qs, kv_dec, layer, k_len, bits, beam)
-    return (out * v_scale[None])[:, None]
+        out = _cross_attention_decode_plain(fold_q(q, k_scale), kv_dec, layer, k_len, bits, beam)
+        return (out * v_scale[None])[:, None]
+    return _cross_attention_decode_cuda(q, kv_dec, k_scale, v_scale, layer, k_len, bits, beam)[:, None]
 
 
 cross_attention_decode_layered.launches = 0

@@ -146,7 +146,7 @@ def _viterbi_cuda(e_states: torch.Tensor, allow_skip: torch.Tensor):
         e_states.data_ptr(), allow_skip.view(torch.uint8).data_ptr(),
         alpha.data_ptr(), bps.data_ptr(), path.data_ptr(),
         0 if scratch is None else scratch.data_ptr(),
-        r, t, n_states, torch.cuda.current_stream(dev).cuda_stream,
+        r, t, n_states, _build.stream(dev),
     )
     _build.check(rc, "viterbi")
     viterbi_batch.launches += 1

@@ -166,7 +166,7 @@ def _log_mel_cuda(waveforms: torch.Tensor, n_mels: int) -> torch.Tensor:
     out = torch.empty((b, n_frames, n_mels), dtype=torch.float32, device=waveforms.device)
     rc = _kernel()(
         waveforms.data_ptr(), cos_m.data_ptr(), sin_m.data_ptr(), fb.data_ptr(), out.data_ptr(),
-        b, t, n_frames, n_mels, torch.cuda.current_stream(waveforms.device).cuda_stream,
+        b, t, n_frames, n_mels, _build.stream(waveforms.device),
     )
     _build.check(rc, "log_mel")
     log_mel_raw.launches += 1

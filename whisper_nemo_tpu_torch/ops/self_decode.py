@@ -71,7 +71,7 @@ def _self_decode_cuda(q, k_full, v_full, anc, mask, layer, beam, n_visible):
         q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(), anc.data_ptr(),
         mask.data_ptr(), out.data_ptr(),
         n_layers, bk, h, d, s, layer, beam, mask_rows, n_visible, d**-0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _build.stream(q.device),
     )
     _build.check(rc, "self_decode")
     self_attention_decode_ancestry_layered.launches += 1
