@@ -14,11 +14,14 @@ Phases, one line each:
      its bound, and bits 8 timed at cluster sizes 2, 4 and 8;
   3b. kernel D (batched CTC Viterbi) against its plain version, bit for
      bit: the segmented aligner's main bucket, a global forced_align of
-     5 minutes of speech, and a trellis whose alpha exceeds shared memory;
+     5 minutes of speech, and a trellis of 30,001 states (a cluster of 8
+     CTAs); its ptxas registers, and a check that it spills none;
   3c. kernel E (beam-ancestry self-attention) against its plain version
-     on the beam-5 decode cache of medium.en at batch 32, at positions 2,
-     127 and 225 with a shared mask, and at 127 with one mask row per
-     beam row;
+     on the beam-5 decode cache of medium.en at batch 32, bf16 and f32, at
+     positions 2, 127 and 225 with a shared mask, and at 127 with one mask
+     row per beam row, each with a random ancestry map and with a beam's
+     runs (long shared prefixes); CUDA events and the profiler's device
+     time; position 225 at cluster sizes 1, 2, 4 and 8;
   3d. kernel F (beam cache permute) against its plain versions, bit for
      bit, out of place and in place, on the same cache, with
      index_select timed beside it as a yardstick;
@@ -28,12 +31,14 @@ Phases, one line each:
   3f. kernels A, B and E at the sequential path's batch-1 shapes: A at
      one window, beam 5 and 1 (and at cluster sizes 2, 4 and 8); B at one
      window; E at B·K = 5 with a 384-position cache, one mask row per
-     beam row and 40 left-padded slots;
+     beam row and 40 left-padded slots, bf16 and f32, both ancestry maps,
+     and at cluster sizes 1, 2, 4 and 8;
   4. kernel B (encoder attention) against its plain version at the
      shapes the paths give it (the medium.en encoder at B=32, B=1 and f32
      B=4; the wav2vec2 aligner at T=1499 in bf16, and in f32 at phase
-     5b's 2 heads), with SDPA timed beside each bf16 shape as a
-     yardstick, and its stages, tile and registers;
+     5b's 2 heads) and at head dims 32, 48, 80 and 128, with SDPA timed
+     beside each shape (in the inputs' dtype) as a yardstick, and its
+     stages, tile and registers;
   5. slice parity: the batched pipeline at small dims on the GPU (the
      kernels) against the same pipeline on the CPU (the plain versions),
      greedy and at beam 5;
@@ -44,6 +49,10 @@ Phases, one line each:
      dims (language detection, VAD, beam 5, timestamps, conditioning) on
      the GPU, each window replayed on the CPU at the GPU's seek with the
      GPU's conditioning tail;
+  5d. widths parity: phase 5 at "default" (f32 with the float cross-KV,
+     the CLI's --device auto), greedy and at beam 5, and at "float16"
+     (the CLI's --device cuda), greedy; kernel E's launches counted at
+     beam 5 and kernel A's held at 0 over the float cross-KV;
   6. the main path, as the CLI flow runs it: WhisperModel("medium.en",
      compute_type="int8") and BatchedInferencePipeline.transcribe(
      batch_size=32) at its default beam 5 on two requests of 20 minutes
@@ -63,6 +72,11 @@ Phases, one line each:
      handler's arguments; launches of C, B, A and E checked against the
      windows and decode steps; then the sequential request's stage
      times;
+  6d. the main path at the default width: WhisperModel("medium.en",
+     compute_type="default") (f32, float cross-KV) and the batched
+     pipeline at beam 5 on one batch of windows (10 minutes of audio),
+     kernel E's launches checked against the steps and kernel A's at 0;
+     then the f32 beam step's device time;
   7. the card's name and power limit, the kernels' JSON line, and last
      {"ok": true, "device": {...}}.
 Any phase that fails raises, and the script exits non-zero without the
@@ -87,13 +101,17 @@ SR = 16000
 BOUND_A = 5e-3  # |kernel - plain|: outputs are O(1); f32 sums in another order
 BOUND_B = 1e-2  # bf16 P in the PV product vs bf16 normalized weights; bf16 output
 # kernel B's tiling, as the constants of csrc/encoder_attention.cu set it
-KERNEL_B_DESIGN = ("192-query CTAs of 1 producer warp and 3 consumer warpgroups of 64 query"
-                   " rows, 128-key tiles, 2 TMA stages")
+KERNEL_B_DESIGN = ("D <= 64: 192-query CTAs of 1 producer warp and 3 consumer warpgroups of 64"
+                   " query rows; 64 < D <= 128: 128-query CTAs of 2 consumer warpgroups at 240"
+                   " registers; 128-key tiles, 2 TMA stages")
 BOUND_D = 0.0  # one f32 add per state and step and an exact max: bit-equal
 # Kernel E against its plain version: both round the output to bf16 once
 # and sum in f32, in another order; a weight near a bf16 rounding boundary
 # may round the other way. Outputs are of order 1.
 BOUND_E = (1e-2, 1e-2)  # |kernel - plain| <= atol + rtol * |plain|
+# At f32 (the default width's cache) q, the weights and the output stay f32
+# on both sides: only the order of the f32 sums differs.
+BOUND_E_F32 = (1e-4, 1e-4)
 BOUND_F = 0.0  # a copy: bit-equal
 # Kernel C against its plain version, after whisper's normalization (values
 # of order 1): the same f32 products summed in another order
@@ -166,19 +184,25 @@ def profiled_device_ms(fn, reps: int) -> dict:
     """Device ms per call of each kernel, by name, from a torch.profiler
     trace of ``reps`` calls: the device-side events only (an operator's
     event repeats the time of the kernels it launched). Empty where the
-    profiler saw no device time."""
+    profiler saw no device time. A trace that comes back with no device
+    event at all is taken again, up to twice: after many traces in one
+    process the profiler has returned one without its device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(i)
-        torch.cuda.synchronize()
-    return {ev.key: ev.self_device_time_total / 1e3 / reps for ev in prof.key_averages()
-            if ev.device_type != DeviceType.CPU and ev.self_device_time_total > 0}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(i)
+            torch.cuda.synchronize()
+        out = {ev.key: ev.self_device_time_total / 1e3 / reps for ev in prof.key_averages()
+               if ev.device_type != DeviceType.CPU and ev.self_device_time_total > 0}
+        if out:
+            return out
+    return out
 
 
 def fmt_profile(kernels: dict) -> str:
@@ -248,11 +272,26 @@ def kernel_a_bound_ms(windows: int, beam: int, bits: int, H=HEADS, D=HEAD_DIM, T
     return (windows * H * rows * T + 2 * windows * beam * H * D * 4) / HBM_BYTES_S * 1e3
 
 
-def kernel_e_bound(bk: int, n_vis: int, mask_rows: int, H=HEADS, D=HEAD_DIM) -> tuple:
-    """(least time, what bounds it) of one kernel E layer launch: the
-    visible K and V of every row, q, the output, anc and the mask, each
-    read or written once; 4 FLOPs a visible channel at the f32 rate."""
-    bytes_ = 2 * bk * H * D * n_vis * 2 + 2 * bk * H * D * 2 + bk * n_vis * 4 + mask_rows * n_vis * 4
+def kernel_e_kv_bytes(anc, n_vis: int, H=HEADS, D=HEAD_DIM, esize=2) -> int:
+    """The K and V bytes kernel E's function needs: at each visible
+    position of each window only the rows ``anc`` names there, so one
+    ``2·H·D·esize`` for each distinct (window, source lane, position)."""
+    import torch
+
+    a = anc[:, :, :n_vis].long()
+    seen = torch.zeros(a.shape, dtype=torch.bool, device=a.device).scatter_(1, a, True)
+    return int(seen.sum()) * 2 * H * D * esize
+
+
+def kernel_e_bound(anc, n_vis: int, mask_rows: int, H=HEADS, D=HEAD_DIM, esize=2) -> tuple:
+    """(least time, what bounds it) of one kernel E layer launch: the K
+    and V rows ``anc`` names up to ``n_vis`` (``kernel_e_kv_bytes``), q
+    and the output (``esize`` bytes an element: bf16 or f32), anc and the
+    mask, each read or written once; 4 FLOPs a visible channel of each
+    query lane at the f32 rate."""
+    bk = anc.shape[0] * anc.shape[1]
+    bytes_ = (kernel_e_kv_bytes(anc, n_vis, H, D, esize) + 2 * bk * H * D * esize
+              + bk * n_vis * 4 + mask_rows * n_vis * 4)
     by_bytes = bytes_ / HBM_BYTES_S * 1e3
     by_ops = 4.0 * bk * H * D * n_vis / F32_FLOPS * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
@@ -448,8 +487,9 @@ def phase_sequential_shapes(seed: int) -> dict:
     """Kernels A, B and E at the sequential path's shapes, beside their
     plain versions: A on one window (W=1) at beam 5 and beam 1, B on one
     window (the encoder at B=1), E at B·K=5 with medium.en's 384-position
-    cache at pos 100, one mask row per beam row and 40 left-padded
-    slots."""
+    cache at pos 100, one mask row per beam row and 40 left-padded slots,
+    on bf16 and f32 caches, with a random ancestry map and a beam's runs,
+    and at cluster sizes 1, 2, 4 and 8."""
     import torch
 
     from whisper_nemo_tpu_torch.ops import attention as at
@@ -482,29 +522,27 @@ def phase_sequential_shapes(seed: int) -> dict:
     out["B"] = r
 
     bk, s_len, pos, pad = BEAM, 384, 100, 40
-    kc, vc = (torch.randn((L, bk, H, D, s_len), device=dev, generator=g, dtype=torch.bfloat16)
-              for _ in range(2))
-    q = torch.randn((bk, 1, H, D), device=dev, generator=g, dtype=torch.bfloat16)
-    anc = torch.randint(0, BEAM, (1, BEAM, s_len), device=dev, generator=g, dtype=torch.int32)
     positions = torch.arange(s_len, device=dev)
     keep = (positions >= pad) & (positions <= pos)
     mask = torch.where(keep, 0.0, float("-inf"))[None, None, None, :].repeat(bk, 1, 1, 1).contiguous()
-    atol, rtol = BOUND_E
-    got = sd._self_decode_cuda(q, kc, vc, anc, mask, L - 1, BEAM, pos + 1).float()
-    ref = at.attention_kt_ancestry(q, kc[L - 1], vc[L - 1], anc, mask).float()
-    torch.cuda.synchronize()
-    diff = (got - ref).abs()
-    err, excess = float(diff.max()), float((diff - rtol * ref.abs()).max())
-    ms = cuda_ms(lambda i=0: sd._self_decode_cuda(q, kc, vc, anc, mask, i % L, BEAM, pos + 1), 96)
-    plain_ms = cuda_ms(lambda i=0: at.attention_kt_ancestry(q, kc[i % L], vc[i % L], anc, mask), 24)
-    bound_ms, bound_by = kernel_e_bound(bk, pos + 1, bk)
-    print(f"[3f kernel E] B·K={bk} S={s_len} pos {pos}, one mask row per beam row, {pad} pad"
-          f" slots: max|err| {err:.3e} (bound {atol:g} + {rtol:g}·|plain|) | kernel {ms:.4f}"
-          f" ms/layer ({H * bk} CTAs), plain {plain_ms:.4f} ms | bound {bound_ms:.5f} ms"
-          f" ({bound_by}), kernel at {bound_ms / ms:.0%} of it")
-    check(excess <= atol, f"kernel E at B·K={bk} S={s_len}: |err| exceeds {atol} + {rtol}·|plain|")
-    out["E"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None}
+    maps = {"random ancestry": torch.randint(0, BEAM, (1, BEAM, s_len), device=dev, generator=g,
+                                             dtype=torch.int32),
+            "a beam's runs": beam_runs_anc(1, BEAM, s_len, g)}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        kc, vc = (torch.randn((L, bk, H, D, s_len), device=dev, generator=g).to(dtype)
+                  for _ in range(2))
+        q = torch.randn((bk, 1, H, D), device=dev, generator=g).to(dtype)
+        for anc_name, anc in maps.items():
+            r = kernel_e_case(sd, at, q, kc, vc, anc, mask, pos + 1, 96)
+            print(f"[3f kernel E] {name} B·K={bk} S={s_len} pos {pos}, one mask row per beam row,"
+                  f" {pad} pad slots, {anc_name}: {fmt_e(r)}")
+            if anc_name == "random ancestry":
+                out[f"E {name}"] = r
+        sweep = {c: kernel_e_times(sd, q, kc, vc, maps["random ancestry"], mask, pos + 1, 96, c)
+                 for c in (1, 2, 4, 8)}
+        print(f"[3f kernel E] {name} B·K={bk}, ms/layer by cluster size, CUDA events (device"
+              f" time): {fmt_sweep(sweep)}")
     return out
 
 
@@ -552,11 +590,17 @@ def phase_kernel_d(seed: int) -> dict:
         alpha, bps = ctc._viterbi_forward_states(e, a)
         return alpha, bps, ctc._viterbi_backtrack(alpha, bps)
 
+    from whisper_nemo_tpu_torch.ops import _build
+
+    spills = [ln.strip() for ln in _build.build_logs.get("viterbi", "").splitlines()
+              if "spill stores" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    print(f"  kernel D: {ptxas_summary('viterbi')}")
+    check(not spills, f"kernel D spills registers: {spills}")
     out = {}
     # (a) the segmented main bucket (2048, 512): 48 segments of 25 s;
     # (b) a global forced_align: 5 min at 20 ms frames, 150 wpm of
     #     5-character words each after a <star>; (c) L = 30001 states,
-    #     whose two alpha buffers exceed the opt-in shared memory
+    #     a cluster of 8 CTAs
     for case, (r, t, n, star, reps) in {
         "a": (48, 2560, 512, 0, 20), "b": (1, 15000, 4600, 6, 5), "c": (2, 1500, 15000, 0, 3),
     }.items():
@@ -573,75 +617,157 @@ def phase_kernel_d(seed: int) -> dict:
         bound_ms, bound_by = viterbi_bound_ms(r, t, 2 * n + 1)
         print(f"[3b kernel D] ({case}) R={r} T={t} L={2 * n + 1}: alpha, bps, path bit-equal"
               f" (max|err| {err:g}, bound {BOUND_D:g}) | kernel {ms:.3f} ms"
-              f" ({ms * 1e3 / (t - 1):.2f} us/step), plain {plain_ms:.1f} ms | bound"
-              f" {bound_ms:.4f} ms ({bound_by})")
+              f" ({ms * 1e3 / (t - 1):.3f} us per each of the {t - 1} dependent steps), plain"
+              f" {plain_ms:.1f} ms | bound {bound_ms:.4f} ms ({bound_by}), kernel at"
+              f" {bound_ms / ms:.1%} of it")
         out[case] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None}
         del e, a, got, want
     return out
 
 
-def _beam_cache(seed: int):
+def _beam_cache(seed: int, dtype=None):
     """The beam decode's self-attention cache at the main path's shape,
-    ``[24, 160, 16, 64, 256]`` bf16 for K and for V (4.0 GB), seeded."""
+    ``[24, 160, 16, 64, 256]`` for K and for V (4.0 GB in bf16, the
+    default; 8.1 GB in f32), seeded."""
     import torch
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     shape = (L_DEC, WINDOWS * BEAM, HEADS, HEAD_DIM, CACHE_LEN)
-    return g, [torch.randn(shape, device=dev, generator=g, dtype=torch.bfloat16) for _ in range(2)]
+    return g, [torch.randn(shape, device=dev, generator=g, dtype=dtype or torch.bfloat16)
+               for _ in range(2)]
+
+
+def beam_runs_anc(windows: int, beam: int, s_len: int, g):
+    """An ancestry map ``[windows, beam, s_len]`` with the runs of a real
+    beam: at each position every lane extends a source lane (lane 0 with
+    probability 0.6, else one drawn at random) and inherits its history,
+    so the lanes share long prefixes, as a beam's hypotheses do."""
+    import torch
+
+    dev = g.device
+    lanes = torch.arange(beam, device=dev, dtype=torch.int32)
+    anc = lanes[None, :, None].repeat(windows, 1, s_len)
+    for pos in range(s_len):
+        src = torch.randint(0, beam, (windows, beam), device=dev, generator=g)
+        src = torch.where(torch.rand((windows, beam), device=dev, generator=g) < 0.6, 0, src)
+        anc = torch.gather(anc, 1, src[:, :, None].expand(-1, -1, s_len))
+        anc[:, :, pos] = lanes
+    return anc.contiguous()
+
+
+def kernel_e_times(sd, q, k, v, anc, mask, n_vis, reps, cluster=None) -> tuple:
+    """(CUDA-event ms, device ms) per kernel E layer launch, walking the
+    layers: events over back-to-back calls (at one window the host's
+    enqueue of a call outlasts the kernel, so they time the host), the
+    kernel's own device time from torch.profiler."""
+    L, beam = k.shape[0], anc.shape[1]
+
+    def launch(i=0):
+        return sd._self_decode_cuda(q, k, v, anc, mask, i % L, beam, n_vis, cluster)
+
+    event_ms = cuda_ms(launch, reps)
+    device_ms = sum(t for name, t in profiled_device_ms(launch, reps).items()
+                    if "self_decode_kernel" in name)
+    check(device_ms > 0, "torch.profiler saw no self_decode kernel")
+    return event_ms, device_ms
+
+
+def kernel_e_case(sd, at, q, k, v, anc, mask, n_vis, reps) -> dict:
+    """Kernel E against its plain version at both ends of the layer stack
+    (bound BOUND_E in bf16, BOUND_E_F32 in f32), then its times per layer
+    launch (``kernel_e_times``), the plain version's and the bound."""
+    import torch
+
+    L, s_len, beam = k.shape[0], k.shape[-1], anc.shape[1]
+    atol, rtol = BOUND_E if k.dtype == torch.bfloat16 else BOUND_E_F32
+    err = excess = 0.0
+    for layer in (0, L - 1):
+        got = sd._self_decode_cuda(q, k, v, anc, mask, layer, beam, n_vis).float()
+        ref = at.attention_kt_ancestry(q, k[layer], v[layer], anc, mask).float()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "kernel E gave non-finite values")
+        diff = (got - ref).abs()
+        err = max(err, float(diff.max()))
+        excess = max(excess, float((diff - rtol * ref.abs()).max()))
+    check(excess <= atol, f"kernel E, {tuple(k.shape)} {k.dtype}: |err| exceeds {atol} +"
+          f" {rtol}·|plain| by {excess - atol:.3e}")
+    ms, device_ms = kernel_e_times(sd, q, k, v, anc, mask, n_vis, reps)
+    plain_ms = cuda_ms(lambda i=0: at.attention_kt_ancestry(q, k[i % L], v[i % L], anc, mask),
+                       max(reps // 8, 4))
+    bk, h = q.shape[0], q.shape[2]
+    bound_ms, bound_by = kernel_e_bound(anc, n_vis, mask.numel() // s_len, H=h,
+                                        esize=k.element_size())
+    kv_bytes = kernel_e_kv_bytes(anc, n_vis, H=h, esize=k.element_size())
+    c = sd._cluster_size(bk // beam, h, n_vis, sd._sms(q.device.index))
+    return {"max_abs_err": err, "bound": (atol, rtol), "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "cluster": c, "ctas": c * (bk // beam) * h,
+            "kv_share": kv_bytes / (2 * bk * h * HEAD_DIM * n_vis * k.element_size()),
+            "gbs": kv_bytes / device_ms / 1e6}
+
+
+def fmt_e(r: dict) -> str:
+    atol, rtol = r["bound"]
+    return (f"max|err| {r['max_abs_err']:.3e} (bound {atol:g} + {rtol:g}·|plain|) | kernel"
+            f" {r['ms']:.4f} ms/layer (CUDA events over back-to-back calls), {r['device_ms']:.4f}"
+            f" ms of device time (torch.profiler; {r['gbs']:.0f} GB/s of the K/V the map names,"
+            f" {r['kv_share']:.0%} of every row's visible K/V) (cluster"
+            f" {r['cluster']}, {r['ctas']} CTAs), plain {r['plain_ms']:.4f} ms | bound"
+            f" {r['bound_ms']:.5f} ms ({r['bound_by']}), kernel at {r['bound_ms'] / r['ms']:.0%} of"
+            f" it ({r['bound_ms'] / r['device_ms']:.0%} by device time)")
 
 
 def phase_kernel_e(seed: int) -> dict:
-    """Kernel E at medium.en's beam-5 decode shape with a random ancestry
-    map, at three positions with the decode step's shared mask and at one
-    with a mask row per beam row. The bound counts the visible K and V of
-    every row, q, the output, anc and the mask, each once."""
+    """Kernel E at medium.en's beam-5 decode shape, on bf16 and f32 caches
+    (the reduced widths' and the default width's), at positions 2, 127
+    and 225 with the decode step's shared mask and at 127 with a mask row
+    per beam row, each with a random ancestry map and with the runs of a
+    real beam; then at position 225 at cluster sizes 1, 2, 4 and 8 beside
+    the wrapper's choice. The bound counts the K and V rows the map names
+    at each visible position (``kernel_e_kv_bytes``: fewer under a beam's
+    runs than under a random map), q, the output, anc and the mask, each
+    once."""
     import torch
 
     from whisper_nemo_tpu_torch.ops import attention as at
     from whisper_nemo_tpu_torch.ops import self_decode as sd
 
-    g, (k, v) = _beam_cache(seed + 2)
-    dev, bk = k.device, WINDOWS * BEAM
-    q = torch.randn((bk, 1, HEADS, HEAD_DIM), device=dev, generator=g, dtype=torch.bfloat16)
-    anc = torch.randint(0, BEAM, (WINDOWS, BEAM, CACHE_LEN), device=dev, generator=g,
-                        dtype=torch.int32)
-    atol, rtol = BOUND_E
+    print(f"  kernel E: {ptxas_summary('self_decode')}")
     out = {}
-    for pos, per_row in ((2, False), (127, False), (225, False), (127, True)):
-        n_vis = pos + 1
-        visible = torch.arange(CACHE_LEN, device=dev) < n_vis
-        if per_row:
-            keep = torch.rand((bk, CACHE_LEN), device=dev, generator=g) > 0.2
-            keep[:, 0] = True
-            mask = torch.where(keep & visible, 0.0, float("-inf"))[:, None, None, :].contiguous()
-        else:
-            mask = torch.where(visible, 0.0, float("-inf"))[None, None, None, :]
-        err = excess = 0.0
-        for layer in (0, L_DEC - 1):
-            got = sd._self_decode_cuda(q, k, v, anc, mask, layer, BEAM, n_vis).float()
-            ref = at.attention_kt_ancestry(q, k[layer], v[layer], anc, mask).float()
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()), "kernel E gave non-finite values")
-            diff = (got - ref).abs()
-            err = max(err, float(diff.max()))
-            excess = max(excess, float((diff - rtol * ref.abs()).max()))
-        ms = cuda_ms(lambda i=0: sd._self_decode_cuda(q, k, v, anc, mask, i % L_DEC, BEAM, n_vis), 48)
-        plain_ms = cuda_ms(lambda i=0: at.attention_kt_ancestry(
-            q, k[i % L_DEC], v[i % L_DEC], anc, mask), 6)
-        kv_bytes = 2 * bk * HEADS * HEAD_DIM * n_vis * 2
-        bound_ms, bound_by = kernel_e_bound(bk, n_vis, mask.numel() // CACHE_LEN)
-        case = f"pos {pos}, {'one mask row per beam row' if per_row else 'shared mask'}"
-        print(f"[3c kernel E] B·K={bk} H={HEADS} D={HEAD_DIM} S={CACHE_LEN} {case}: max|err|"
-              f" {err:.3e} (bound {atol:g} + {rtol:g}·|plain|) | kernel {ms:.4f} ms/layer"
-              f" ({kv_bytes / ms / 1e6:.0f} GB/s of visible K/V), plain {plain_ms:.4f} ms/layer"
-              f" | bound {bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / ms:.0%} of it")
-        check(excess <= atol, f"kernel E at {case}: |err| exceeds {atol} + {rtol}·|plain| by"
-              f" {excess - atol:.3e}")
-        out[(pos, per_row)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    del k, v
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        g, (k, v) = _beam_cache(seed + 2, dtype)
+        dev, bk = k.device, WINDOWS * BEAM
+        q = torch.randn((bk, 1, HEADS, HEAD_DIM), device=dev, generator=g).to(dtype)
+        maps = {"random ancestry": torch.randint(0, BEAM, (WINDOWS, BEAM, CACHE_LEN), device=dev,
+                                                 generator=g, dtype=torch.int32),
+                "a beam's runs": beam_runs_anc(WINDOWS, BEAM, CACHE_LEN, g)}
+        for pos, per_row in ((2, False), (127, False), (225, False), (127, True)):
+            n_vis = pos + 1
+            visible = torch.arange(CACHE_LEN, device=dev) < n_vis
+            if per_row:
+                keep = torch.rand((bk, CACHE_LEN), device=dev, generator=g) > 0.2
+                keep[:, 0] = True
+                mask = torch.where(keep & visible, 0.0, float("-inf"))[:, None, None, :].contiguous()
+            else:
+                mask = torch.where(visible, 0.0, float("-inf"))[None, None, None, :]
+            for anc_name, anc in maps.items():
+                r = kernel_e_case(sd, at, q, k, v, anc, mask, n_vis, 48)
+                case = f"pos {pos}, {'one mask row per beam row' if per_row else 'shared mask'}"
+                print(f"[3c kernel E] {name} B·K={bk} H={HEADS} D={HEAD_DIM} S={CACHE_LEN} {case},"
+                      f" {anc_name}: {fmt_e(r)}")
+                if anc_name == "random ancestry":
+                    out[(name, pos, per_row)] = r
+        mask = torch.where(torch.arange(CACHE_LEN, device=dev) < 226, 0.0,
+                           float("-inf"))[None, None, None, :]
+        sweep = {c: kernel_e_times(sd, q, k, v, maps["random ancestry"], mask, 226, 48, c)
+                 for c in (1, 2, 4, 8)}
+        print(f"[3c kernel E] {name} pos 225, ms/layer by cluster size, CUDA events (device time):"
+              f" {fmt_sweep(sweep)}")
+        del k, v
+        torch.cuda.empty_cache()
     return out
 
 
@@ -703,7 +829,7 @@ def phase_kernel_f(seed: int) -> dict:
     return out
 
 
-def kernel_b_bound(B: int, T: int, H: int, out_bytes: int, D=HEAD_DIM) -> tuple:
+def kernel_b_bound(B: int, T: int, H: int, out_bytes: int, D: int = HEAD_DIM) -> tuple:
     """(least time, what bounds it) of one kernel B launch: 4·B·H·T²·D
     bf16 tensor-core operations, against q, k and v read once in bf16 and
     the output written once."""
@@ -712,17 +838,16 @@ def kernel_b_bound(B: int, T: int, H: int, out_bytes: int, D=HEAD_DIM) -> tuple:
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
-def kernel_b_case(at, B: int, T: int, H: int, dtype, g) -> dict:
-    """Kernel B against its plain version on seeded ``[B, T, H, 64]``
-    inputs of ``dtype``, then its time, the plain version's and, for bf16,
-    SDPA's on the same operands as ``[B, H, T, D]`` (the yardstick; it
-    never runs on the port's path)."""
+def kernel_b_case(at, B: int, T: int, H: int, dtype, g, D: int = HEAD_DIM) -> dict:
+    """Kernel B against its plain version on seeded ``[B, T, H, D]``
+    inputs of ``dtype``, then its time, the plain version's and SDPA's on
+    the same operands as ``[B, H, T, D]`` (the yardstick, in the inputs'
+    dtype; it never runs on the port's path)."""
     import torch
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
-    q, k, v = (torch.randn((B, T, H, HEAD_DIM), device=dev, generator=g).to(dtype)
-               for _ in range(3))
+    q, k, v = (torch.randn((B, T, H, D), device=dev, generator=g).to(dtype) for _ in range(3))
     got = at._encoder_attention_cuda(q, k, v)
     ref = at._xla_attention(q, k, v)
     torch.cuda.synchronize()
@@ -732,14 +857,12 @@ def kernel_b_case(at, B: int, T: int, H: int, dtype, g) -> dict:
     reps = max(10, min(200, int(3e4 // B)))
     ms = cuda_ms(lambda i=0: at._encoder_attention_cuda(q, k, v), reps)
     plain_ms = cuda_ms(lambda i=0: at._xla_attention(q, k, v), 3)
-    lib_ms = None
-    if dtype == torch.bfloat16:
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib_ms = cuda_ms(lambda i=0: F.scaled_dot_product_attention(qt, kt, vt), reps)
-    bound_ms, bound_by = kernel_b_bound(B, T, H, got.element_size())
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = cuda_ms(lambda i=0: F.scaled_dot_product_attention(qt, kt, vt), reps)
+    bound_ms, bound_by = kernel_b_bound(B, T, H, got.element_size(), D)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms,
-            "tflops": 4.0 * B * H * T * T * HEAD_DIM / ms / 1e9}
+            "tflops": 4.0 * B * H * T * T * D / ms / 1e9}
 
 
 def fmt_b(r: dict) -> str:
@@ -754,7 +877,10 @@ def fmt_b(r: dict) -> str:
 def phase_kernel_b(seed: int) -> dict:
     """Kernel B at the shapes the paths give it: the Whisper encoder's (bf16
     B=32, f32 B=4, and B=1 for the sequential window) and the wav2vec2
-    aligner's (bf16 B=8, T=1499; f32 at phase 5b's 2 heads)."""
+    aligner's (bf16 B=8, T=1499; f32 at phase 5b's 2 heads); then at head
+    dims 32 and 48 (the 64-column instantiation, columns past D filled
+    with zeros) and 80 and 128 (the 128-column one), bf16 B=8 T=1500 H=16,
+    and f32 at 128."""
     import torch
 
     from whisper_nemo_tpu_torch.ops import attention as at
@@ -762,16 +888,21 @@ def phase_kernel_b(seed: int) -> dict:
     g = torch.Generator(device=torch.device("cuda")).manual_seed(seed + 1)
     print(f"  kernel B design: {KERNEL_B_DESIGN} | {ptxas_summary('encoder_attention')}")
     out = {}
-    for name, dtype, B, T, H in (("whisper", torch.bfloat16, 32, 1500, HEADS),
-                                 ("whisper", torch.float32, 4, 1500, HEADS),
-                                 ("whisper", torch.bfloat16, 1, 1500, HEADS),
-                                 ("wav2vec2", torch.bfloat16, 8, 1499, HEADS),
-                                 ("wav2vec2", torch.float32, 8, 1499, 2)):
-        r = kernel_b_case(at, B, T, H, dtype, g)
-        print(f"[4 kernel B] {name} {str(dtype)[6:]} B={B} T={T} H={H} D={HEAD_DIM}: {fmt_b(r)}")
-        check(r["max_abs_err"] <= BOUND_B, f"kernel B {name} {dtype} B={B}: max|err|"
+    for name, dtype, B, T, H, D in (("whisper", torch.bfloat16, 32, 1500, HEADS, HEAD_DIM),
+                                    ("whisper", torch.float32, 4, 1500, HEADS, HEAD_DIM),
+                                    ("whisper", torch.bfloat16, 1, 1500, HEADS, HEAD_DIM),
+                                    ("wav2vec2", torch.bfloat16, 8, 1499, HEADS, HEAD_DIM),
+                                    ("wav2vec2", torch.float32, 8, 1499, 2, HEAD_DIM),
+                                    ("head dim", torch.bfloat16, 8, 1500, HEADS, 32),
+                                    ("head dim", torch.bfloat16, 8, 1500, HEADS, 48),
+                                    ("head dim", torch.bfloat16, 8, 1500, HEADS, 80),
+                                    ("head dim", torch.bfloat16, 8, 1500, HEADS, 128),
+                                    ("head dim", torch.float32, 8, 1500, HEADS, 128)):
+        r = kernel_b_case(at, B, T, H, dtype, g, D)
+        print(f"[4 kernel B] {name} {str(dtype)[6:]} B={B} T={T} H={H} D={D}: {fmt_b(r)}")
+        check(r["max_abs_err"] <= BOUND_B, f"kernel B {name} {dtype} B={B} D={D}: max|err|"
               f" {r['max_abs_err']} > {BOUND_B}")
-        if dtype == torch.bfloat16 and B > 1:
+        if name != "head dim" and dtype == torch.bfloat16 and B > 1:
             out[name] = r
     torch.cuda.empty_cache()
     return out
@@ -780,13 +911,14 @@ def phase_kernel_b(seed: int) -> dict:
 def _forced_logits(engine, audio, windows, hyps, prompt, suppress_mask):
     """Filtered f32 logits ``[len(windows), n, V]`` of each window's
     hypothesis ``hyps[i]`` (generated tokens), teacher-forced through the
-    port's prefill with the windows' whole batch (the cross-KV scales are
-    taken over the batch): row ``t`` predicts generated token ``t``."""
+    port's prefill with the windows' whole batch, over the engine's
+    cross-KV (an int8 one's scales are taken over the batch): row ``t``
+    predicts generated token ``t``."""
     import torch
 
     from whisper_nemo_tpu_torch.models.whisper import _vocab_logits
     from whisper_nemo_tpu_torch.models.whisper_stacked import (
-        cross_kv_decode_layout_fused,
+        cross_kv_for_decode,
         init_stacked_cache,
         prefill_cache_stacked,
     )
@@ -801,7 +933,7 @@ def _forced_logits(engine, audio, windows, hyps, prompt, suppress_mask):
     n = len(prompt) + max(len(h) for h in hyps)
     with torch.inference_mode():
         feats = engine.encode_windows(mel.log_mel_spectrogram_batch(waves, dims.n_mels))
-        ckv = cross_kv_decode_layout_fused(p, feats, dims, bits=engine.kv_bits)
+        ckv = cross_kv_for_decode(p, feats.to(engine.dtype), dims, engine.cross_kv_bits)
         tokens = torch.tensor([(prompt + list(h) + [opts.eot] * n)[:n] for h in hyps], device=dev)
         cache = init_stacked_cache(len(windows), dims, engine.dtype, 128, dev)
         x, _ = prefill_cache_stacked(p, tokens, cache, ckv, dims, engine.dtype)
@@ -843,12 +975,21 @@ def first_difference(a, b, eot):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
-def phase_slice_parity(seed: int, devices=("cuda", "cpu"), beam_size: int = 1) -> None:
+def phase_slice_parity(seed: int, devices=("cuda", "cpu"), beam_size: int = 1,
+                       compute_type: str = "int8") -> None:
+    """The batched pipeline at small dims (head dim 64) at
+    ``compute_type`` on the first device (the kernels) against the second
+    (the plain versions): greedy at the first differing token, beam 5 by
+    the second device's teacher-forced rescoring. On a CUDA device the
+    kernels' launches are counted: kernel A runs over the int8 cross-KV
+    only, never at the f32 widths' float one; kernel E runs at beam 5."""
     import torch
 
     from whisper_nemo_tpu_torch.engine.decode import build_suppress_mask
     from whisper_nemo_tpu_torch.engine.transcribe import WhisperEngine
     from whisper_nemo_tpu_torch.models.whisper import WhisperDims, init_whisper_params
+    from whisper_nemo_tpu_torch.ops import cross_decode as cd
+    from whisper_nemo_tpu_torch.ops import self_decode as sd
     from whisper_nemo_tpu_torch.text.tokenizer import WhisperTokenizer, get_suppressed_tokens
 
     dims = WhisperDims(80, 1500, 128, 2, 2, 51864, 64, 128, 2, 2)  # head dim 64
@@ -856,10 +997,24 @@ def phase_slice_parity(seed: int, devices=("cuda", "cpu"), beam_size: int = 1) -
     tok = WhisperTokenizer.byte_fallback(multilingual=False)
     audio = speechlike(70.0, seed)
     runs = []
+    counters = (cd.cross_attention_decode_layered, sd.self_attention_decode_ancestry_layered)
+    launches = "no CUDA device in this run"
     for dev in devices:
-        eng = WhisperEngine("tiny.en", "int8", device=dev, params=params, dims=dims, tokenizer=tok)
+        eng = WhisperEngine("tiny.en", compute_type, device=dev, params=params, dims=dims,
+                            tokenizer=tok)
+        for fn in counters:
+            fn.launches = 0
         segs, _ = eng.transcribe_batched(audio, language="en", batch_size=2, beam_size=beam_size)
         runs.append((eng, segs))
+        if dev != "cpu":
+            a, e = (fn.launches for fn in counters)
+            steps = sum(eng.last_decode_steps) * dims.n_text_layer
+            check(a == (0 if compute_type in ("default", "float32") else steps),
+                  f"slice parity at {compute_type}: kernel A launched {a} times for {steps} layer"
+                  " steps")
+            check(e == (steps if beam_size > 1 else 0), f"slice parity at {compute_type} beam"
+                  f" {beam_size}: kernel E launched {e} times for {steps} layer steps")
+            launches = f"launches on {dev}: A {a}, E {e} ({steps} layer steps)"
     (gpu, gsegs), (cpu, csegs) = runs
     check([(s.start, s.end) for s in gsegs] == [(s.start, s.end) for s in csegs],
           "slice parity: VAD windows differ between GPU and CPU")
@@ -924,10 +1079,11 @@ def phase_slice_parity(seed: int, devices=("cuda", "cpu"), beam_size: int = 1) -
               f" differs beyond the tie tolerance {TIE_TOL}")
     rule = (f"GPU score vs CPU rescoring max {score_err:.2e} < {SCORE_TOL:g}, CPU best minus"
             f" rescoring max {tie_gap:.4f}" if beam_size > 1 else "CPU logit gap and top-2 margin")
-    print(f"[5 slice parity] beam {beam_size}: {len(gsegs)} windows in"
+    print(f"[5 slice parity] {compute_type} beam {beam_size}: {len(gsegs)} windows in"
           f" {len(gpu.last_decode_steps)} batches (decode steps {gpu.last_decode_steps}):"
           f" {equal} token-equal, {ties} differ at a tie ({rule} < {TIE_TOL}); GPU vs CPU"
-          f" logits of window 0 after 8 tokens: max|err| {logit_err:.4f} (bound {TIE_TOL})")
+          f" logits of window 0 after 8 tokens: max|err| {logit_err:.4f} (bound {TIE_TOL})"
+          f" | {launches}")
 
 
 def _rescore_window(engine, feats, prompt, valid, hyp, suppress_mask, language):
@@ -941,7 +1097,7 @@ def _rescore_window(engine, feats, prompt, valid, hyp, suppress_mask, language):
     from whisper_nemo_tpu_torch.engine.decode import _filter_logits, _static_filter
     from whisper_nemo_tpu_torch.models.whisper import _vocab_logits
     from whisper_nemo_tpu_torch.models.whisper_stacked import (
-        cross_kv_decode_layout_fused,
+        cross_kv_for_decode,
         init_stacked_cache,
         prefill_cache_stacked,
     )
@@ -957,7 +1113,7 @@ def _rescore_window(engine, feats, prompt, valid, hyp, suppress_mask, language):
     kv_valid = torch.ones((1, cache_len), dtype=torch.bool, device=dev)
     kv_valid[0, :n_prompt] = torch.from_numpy(np.asarray(valid, bool)).to(dev)
     with torch.inference_mode():
-        ckv = cross_kv_decode_layout_fused(p, feats.to(engine.dtype), dims, bits=engine.kv_bits)
+        ckv = cross_kv_for_decode(p, feats.to(engine.dtype), dims, engine.cross_kv_bits)
         cache = init_stacked_cache(1, dims, engine.dtype, cache_len, dev)
         x, _ = prefill_cache_stacked(p, tokens, cache, ckv, dims, engine.dtype, kv_valid=kv_valid,
                                      pos_offset=(~kv_valid[:, :n_prompt]).sum(dim=1))
@@ -1272,6 +1428,101 @@ def phase_main_path(seed: int) -> dict:
             "aligner": aligner, "align_tok": align_tok, "segments": timed_segments}
 
 
+def phase_widths_parity(seed: int, devices=("cuda", "cpu")) -> None:
+    """Phase 5's GPU-against-CPU rules at the JAX package's other widths:
+    "default" (f32, float cross-KV: the CLI's --device auto and the
+    facades' default) greedy and at beam 5, and "float16" (the CLI's
+    --device cuda: bf16 weights, int8 cross-KV) greedy."""
+    phase_slice_parity(seed, devices, beam_size=1, compute_type="default")
+    phase_slice_parity(seed, devices, beam_size=BEAM, compute_type="default")
+    phase_slice_parity(seed, devices, beam_size=1, compute_type="float16")
+
+
+def phase_default_main(seed: int) -> dict:
+    """The main path at the CLI's default width (--device auto runs
+    "default"): WhisperModel("medium.en", compute_type="default") at f32
+    with the float cross-KV, and BatchedInferencePipeline.transcribe(
+    batch_size=32) at its default beam 5, one request of 10 minutes of
+    speech-like audio (one batch of windows). Kernel E runs on the f32
+    cache (24 launches per beam step), kernel A never (the float
+    cross-KV), kernel B 24 per batch. Then the f32 beam step alone at
+    B·K=160 (CUDA events; torch.profiler's device time)."""
+    import torch
+
+    from whisper_nemo_tpu_torch.asr import BatchedInferencePipeline, WhisperModel
+    from whisper_nemo_tpu_torch.models.whisper_stacked import (
+        cross_kv_float,
+        decode_step_stacked,
+        init_stacked_cache,
+    )
+    from whisper_nemo_tpu_torch.ops import attention as at
+    from whisper_nemo_tpu_torch.ops import cross_decode as cd
+    from whisper_nemo_tpu_torch.ops import self_decode as sd
+
+    t0 = time.time()
+    model = WhisperModel("medium.en", device="cuda", compute_type="default", seed=seed)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    eng = model.engine
+    check(eng.dtype == torch.float32 and eng.cross_kv_bits is None,
+          "medium.en at \"default\" is not f32 with the float cross-KV")
+    L_dec, L_enc = eng.dims.n_text_layer, eng.dims.n_audio_layer
+    audio = speechlike(600.0, seed + 8)
+    counters = (cd.cross_attention_decode_layered, at.encoder_attention,
+                sd.self_attention_decode_ancestry_layered)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.time()
+    segs, info = BatchedInferencePipeline(model).transcribe(audio, language="en", batch_size=32)
+    segs = list(segs)
+    torch.cuda.synchronize()
+    wall = time.time() - t1
+    a, b, e = (fn.launches for fn in counters)
+    steps = list(eng.last_decode_steps)
+    check(len(steps) == 1, f"default width: expected one batch of windows, got {len(steps)}")
+    check(e > 0 and e == sum(steps) * L_dec, f"default width: kernel E launched {e} times,"
+          f" expected {sum(steps)} steps x {L_dec} layers")
+    check(a == 0, f"default width: kernel A launched {a} times over the float cross-KV")
+    check(b == len(steps) * L_enc, f"default width: kernel B launched {b} times, expected"
+          f" {len(steps)} batches x {L_enc} layers")
+    for sg in segs:
+        check(np.isfinite(sg.avg_logprob) and 0.0 <= sg.no_speech_prob <= 1.0
+              and 0.0 <= sg.start < sg.end <= info.duration + 1e-6 and len(sg.tokens) <= 224,
+              f"default width, segment {sg.id}: out of range")
+    print(f"[6d default width] medium.en \"default\" (f32, float cross-KV) b32 beam 5: setup"
+          f" {setup_s:.1f} s | audio {info.duration:.0f} s, after VAD"
+          f" {info.duration_after_vad:.1f} s | windows {len(segs)}, decode steps {steps} |"
+          f" launches E {e} (= {sum(steps)} steps x {L_dec}, f32 cache), A {a}, B {b} | request"
+          f" {wall:.2f} s ({wall / info.duration * 3600:.1f} s per audio hour,"
+          f" {wall * 1e3 / sum(steps):.2f} ms per decode step, whole request)")
+
+    # the f32 beam step at B·K = 160 rows over the window-shared float cross-KV
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    bk = WINDOWS * BEAM
+    with torch.inference_mode():
+        feats = torch.randn((WINDOWS, 1500, eng.dims.n_text_state), device=dev, generator=g)
+        ckv = cross_kv_float(eng.params, feats, eng.dims)
+        cache = init_stacked_cache(bk, eng.dims, torch.float32, CACHE_LEN, dev)
+        anc = torch.randint(0, BEAM, (WINDOWS, BEAM, CACHE_LEN), device=dev, generator=g,
+                            dtype=torch.int32)
+        tok = torch.full((bk,), 220, device=dev)
+
+        def beam_step(i=0):
+            return decode_step_stacked(eng.params, tok, 2 + i % 200, cache, ckv, eng.dims,
+                                       torch.float32, return_hidden=True, anc=anc)
+
+        step_ms = cuda_ms(beam_step, 20)
+        prof = profiled_device_ms(lambda i=0: beam_step(100 + i), 5)
+    print(f"[6d default width] f32 beam step, B·K={bk} medium.en, cache {CACHE_LEN}: decode step"
+          f" {step_ms:.3f} ms (CUDA events, positions 2-21) | torch.profiler at positions"
+          f" 100-104: {fmt_profile(prof)}")
+    del model, ckv, cache
+    torch.cuda.empty_cache()
+    return {"launches_e": e, "wall": wall}
+
+
 def phase_sequential_main(main: dict, seed: int) -> dict:
     """The CLI's --batch-size 0 call on medium.en int8 (the main path's
     model): beam 5, the default ladder, conditioning, timestamps, VAD. One
@@ -1536,12 +1787,12 @@ def phase_stage_times(main: dict, a: dict, e: dict) -> None:
             beam_advance(filt, scores, tokens, anc, finished, 100, eot_only, opts.eot)
         select_enqueue_ms = (time.perf_counter() - t0) * 1e3 / 20
         torch.cuda.synchronize()
-    e_ms, a_ms = e[(127, False)]["ms"] * L_DEC, a[5]["device_ms"] * L_DEC
+    e_ms, a_ms = e[("bfloat16", 127, False)]["device_ms"] * L_DEC, a[5]["device_ms"] * L_DEC
     print(f"[6b stages] beam step, B·K={bk} medium.en int8, cache {CACHE_LEN}: decode step"
           f" {beam_ms:.3f} ms (CUDA events, positions 2-201); host enqueues a step in"
           f" {beam_enqueue_ms:.3f} ms, device done {beam_done_ms:.3f} ms after the first"
           f" enqueue, per step | torch.profiler at positions 100-104: {fmt_profile(beam_prof)}"
-          f" | of the device time: kernel E {e_ms:.3f} ms (24 x phase 3c at"
+          f" | of the device time: kernel E {e_ms:.3f} ms (24 x phase 3c's device time at"
           f" pos 127), kernel A {a_ms:.3f} ms (24 x phase 3's device time at beam 5) | per"
           f" selection: vocab projection {vocab_ms:.3f} ms, beam_advance {select_ms:.3f} ms (host enqueue"
           f" {select_enqueue_ms:.3f} ms), of it the tie-ordered top-K {topk_ms:.3f} ms"
@@ -1596,11 +1847,13 @@ def main() -> int:
     phase_slice_parity(args.seed, beam_size=BEAM)
     phase_align_parity(args.seed)
     phase_sequential_parity(args.seed)
+    phase_widths_parity(args.seed)
     main_run = phase_main_path(args.seed)
     phase_stage_times(main_run, a, e)
     phase_align_stage_times(main_run, d["a"])
     seq = phase_sequential_main(main_run, args.seed)
     phase_sequential_stage_times(main_run, seq, c)
+    default = phase_default_main(args.seed)
 
     import torch
 
@@ -1624,7 +1877,12 @@ def main() -> int:
         {"name": "self_attention_decode_ancestry_layered", "route": "cuda",
          "source": "whisper_nemo_tpu_torch/csrc/self_decode.cu",
          "replaces": "whisper_nemo_tpu/ops/self_decode.py:198",
-         "launches": main_run["launches_e"], **e[(127, False)]},
+         "launches": main_run["launches_e"], **e[("bfloat16", 127, False)]},
+        # the CLI's default width (6d): kernel E on the f32 cache
+        {"name": "self_attention_decode_ancestry_layered (f32, the default width)",
+         "route": "cuda", "source": "whisper_nemo_tpu_torch/csrc/self_decode.cu",
+         "replaces": "whisper_nemo_tpu/ops/self_decode.py:198",
+         "launches": default["launches_e"], **e[("float32", 127, False)]},
         # kernel F lies on no path of the port (nor of the JAX package)
         {"name": "beam_permute_cache", "route": "cuda",
          "source": "whisper_nemo_tpu_torch/csrc/beam_permute.cu",
@@ -1650,11 +1908,11 @@ def main() -> int:
         {"name": "self_attention_decode_ancestry_layered (sequential, B·K=5 S=384)",
          "route": "cuda", "source": "whisper_nemo_tpu_torch/csrc/self_decode.cu",
          "replaces": "whisper_nemo_tpu/ops/self_decode.py:198",
-         "launches": seq["timed"]["launches"][3], **s3["E"]},
+         "launches": seq["timed"]["launches"][3], **s3["E bfloat16"]},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    # kernel A also carries its profiler device time beside the events' ms
+    # kernels A and E also carry their profiler device time beside the events' ms
     kernels = [{k: entry[k] for k in keys + ("device_ms",) if k in entry} for entry in kernels]
     print(smi)
     print(json.dumps({"kernels": kernels}))

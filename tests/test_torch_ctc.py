@@ -85,6 +85,37 @@ def test_single_frame_trellis():
     assert path[:, 0].tolist() == [1, 1]
 
 
+@pytest.mark.parametrize("t,n_states", [(1, 1), (1, 2), (1, 3), (9, 1), (9, 2), (9, 3)])
+def test_plain_viterbi_edges_match_jax(t, n_states):
+    """The smallest trellises (L = 1, 2 and 3 states; T = 1 and 9) with
+    random skip permissions, also at states 0 and 1, and emissions on a
+    grid of 0.5, so ties are common: alpha, backpointers and path exactly
+    JAX's, row by row (kernel D is held bit for bit against this plain
+    version on the card, tests/test_torch_kernels.py). JAX's scan does not
+    take a single state (its shifted copies lose their shape), so L = 1
+    is held against its closed form: stay at every step, alpha the f32
+    running sum of the one state's emissions."""
+    rng = np.random.default_rng(t * 10 + n_states)
+    e_states = (np.round(rng.standard_normal((3, t, n_states)) * 4) / 2).astype(np.float32)
+    allow_skip = rng.random((3, n_states)) < 0.5
+    alpha, bps, path = ctc.viterbi_batch(torch.from_numpy(e_states), torch.from_numpy(allow_skip))
+    assert bps.shape == (3, t - 1, n_states)
+    if n_states == 1:
+        want = e_states[:, 0, 0].copy()
+        for step in range(1, t):
+            want = e_states[:, step, 0] + want  # f32, in the recurrence's order
+        np.testing.assert_array_equal(alpha[:, 0].numpy(), want)
+        assert not bps.any() and not path.any()
+        return
+    for row in range(3):
+        a_ref, bp_ref = jax_ctc._viterbi_forward_states(jnp.asarray(e_states[row]),
+                                                        jnp.asarray(allow_skip[row]))
+        np.testing.assert_array_equal(alpha[row].numpy(), np.asarray(a_ref))
+        np.testing.assert_array_equal(bps[row].numpy(), np.asarray(bp_ref).reshape(t - 1, n_states))
+        np.testing.assert_array_equal(path[row].numpy(),
+                                      np.asarray(jax_ctc._viterbi_backtrack(a_ref, bp_ref)))
+
+
 def test_forced_align_label_segments_and_star_match_jax():
     """The planted case of tests/test_align.py plus a wildcard label:
     star column, frame labels, score and label spans equal JAX's."""

@@ -253,13 +253,23 @@ def test_encoder_attention_kernel_matches_plain_on_cuda(cuda_device, t, b, h, dt
     assert err <= 0.2 * float(want.float().pow(2).mean().sqrt()), err
 
 
+def _viterbi_random(r, t, n_states, seed, ties):
+    """``[r, t, n_states]`` f32 state emissions with random skip
+    permissions (``ties``: values on a grid of 0.5, so equal candidates
+    are common and the first-maximum rule decides)."""
+    rng = np.random.default_rng(seed)
+    em = rng.standard_normal((r, t, n_states)).astype(np.float32) * 3
+    if ties:
+        em = np.round(em * 2) / 2
+    return torch.from_numpy(em), torch.from_numpy(rng.random((r, n_states)) < 0.5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,t,n", [(3, 300, 20), (2, 1, 3), (1, 40, 15000)])
 def test_viterbi_kernel_matches_plain_on_cuda(cuda_device, r, t, n):
     """Kernel D against its plain version on the card, bit for bit:
     rows of different content, a single frame, and L = 30001 states,
-    whose alpha buffers exceed shared memory and live in the global
-    scratch (chip_smoke.py checks the main path's shapes)."""
+    a cluster of CTAs (chip_smoke.py checks the main path's shapes)."""
     e_states, skips = _viterbi_case(r, t, n, 3)
     e_states, skips = e_states.to(cuda_device), skips.to(cuda_device)
     launches = ctc.viterbi_batch.launches
@@ -268,6 +278,55 @@ def test_viterbi_kernel_matches_plain_on_cuda(cuda_device, r, t, n):
     want = (want_alpha, want_bps, ctc._viterbi_backtrack(want_alpha, want_bps))
     torch.cuda.synchronize()
     assert ctc.viterbi_batch.launches == launches + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,t,n_states,ties", [
+    (2, 7, 1, False), (2, 7, 2, True), (3, 1, 3, False), (2, 9, 3, True),
+    (2, 50, 256, True), (2, 50, 257, False), (3, 64, 1025, True), (1, 33, 2049, False),
+    (2, 20, 16384, True), (1, 20, 16385, False), (1, 12, 28785, True), (1, 6, 32769, False),
+])
+def test_viterbi_kernel_edges_on_cuda(cuda_device, r, t, n_states, ties):
+    """Kernel D bit for bit at its edges, with random skip permissions
+    (also at states 0 and 1, where the rule never skips): L = 1, 2 and 3;
+    a single frame; one warp's 256 states and one more (two segments);
+    the main bucket's L = 1025 (five warps); 2049; the last L of 8 and of
+    16 states a lane; past the 28,784 states whose alpha buffers filled
+    the earlier design's shared memory; 32 states a lane. Emissions on a
+    grid of 0.5 make ties common, where the first maximum must win."""
+    e_states, skips = (x.to(cuda_device) for x in _viterbi_random(r, t, n_states, n_states, ties))
+    got = ctc.viterbi_batch(e_states, skips)
+    want_alpha, want_bps = ctc._viterbi_forward_states(e_states, skips)
+    want = (want_alpha, want_bps, ctc._viterbi_backtrack(want_alpha, want_bps))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,t,n_states,ties", [
+    (1, 6, 65536, True), (2, 9, 65537, False), (1, 12, 70001, True), (1, 300, 70001, False),
+    (1, 5, 196609, True),
+])
+def test_viterbi_kernel_passes_on_cuda(cuda_device, r, t, n_states, ties):
+    """Kernel D bit for bit on trellises wider than one pass of 65,536
+    states (a global alignment of more than about half an hour): the last
+    L of one pass, one state more, about 70,000 states at few and at 300
+    frames, and four passes. Non-negative emissions of order 1e28 make the
+    states no path reaches yet (alpha -1e30 + emissions) differ too, so
+    every edge handed from one pass to the next decides backpointers. (Not
+    negative: as with log-probs, every alpha then stays at or above the
+    -1e30 that stands for a skip the rule forbids, where the plain version
+    and the kernel agree by construction.)"""
+    e_states, skips = _viterbi_random(r, t, n_states, n_states, ties)
+    e_states, skips = (e_states.abs() * 1e28).to(cuda_device), skips.to(cuda_device)
+    got = ctc.viterbi_batch(e_states, skips)
+    want_alpha, want_bps = ctc._viterbi_forward_states(e_states, skips)
+    want = (want_alpha, want_bps, ctc._viterbi_backtrack(want_alpha, want_bps))
+    torch.cuda.synchronize()
+    assert bool((want_bps[:, :, n_states // 2:] != 0).any())
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
@@ -301,6 +360,82 @@ def test_self_decode_kernel_matches_plain_on_cuda(cuda_device, per_row_mask):
         self_decode.self_attention_decode_ancestry_layered(q, k, v, anc.long(), mask, 0, 5)
     with pytest.raises(ValueError, match="shapes"):
         self_decode.self_attention_decode_ancestry_layered(q, k, v, anc, mask, 2, 5)
+
+
+# |kernel - plain| <= atol + rtol * |plain| on outputs of order 1: bf16 as
+# above; f32 keeps q, the weights and the output in f32, so only the order
+# of the f32 sums differs
+E_BOUNDS = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("beam,windows,s,n_visible,per_row,cluster,d", [
+    (1, 1, 40, 1, False, None, 64), (2, 3, 64, 64, True, None, 64),
+    (3, 5, 128, 128, False, 1, 64), (4, 2, 128, 63, True, 2, 64), (5, 1, 384, 101, True, None, 64),
+    (5, 4, 256, 64, False, 2, 64), (5, 4, 256, 65, False, 4, 64), (5, 32, 256, 226, False, None, 64),
+    (6, 1, 448, 448, True, 8, 64), (7, 2, 448, 300, False, 3, 64), (8, 2, 128, 127, True, 8, 64),
+    (8, 1, 64, 9, False, 8, 64), (3, 2, 64, 40, True, None, 18), (5, 2, 128, 100, False, 2, 128),
+])
+def test_self_decode_kernel_shapes_on_cuda(cuda_device, dtype, beam, windows, s, n_visible,
+                                           per_row, cluster, d):
+    """Kernel E against its plain version at bf16 and f32: beam 1 to 8,
+    one window and many, a shared mask and one mask row per beam row (a
+    third of the positions hidden at random, position 0 kept), n_visible
+    of 1, at the edges of 16- to 64-position tiles and equal to S, cluster
+    sizes 1, 2, 3, 4 and 8 beside the wrapper's choice (8 with fewer
+    positions than CTAs), and head dims 18 and 128 beside Whisper's 64.
+    Positions at and past n_visible hold NaN, so a read of one shows. The
+    output has the cache's dtype."""
+    g = torch.Generator(device=cuda_device).manual_seed(beam * 1000 + s + n_visible)
+    bk, h = windows * beam, 4
+    q = torch.randn((bk, 1, h, d), device=cuda_device, generator=g).to(dtype)
+    k, v = (torch.randn((2, bk, h, d, s), device=cuda_device, generator=g).to(dtype)
+            for _ in range(2))
+    for x in (k, v):
+        x[..., n_visible:] = float("nan")
+    anc = torch.randint(0, beam, (windows, beam, s), device=cuda_device, generator=g,
+                        dtype=torch.int32)
+    visible = torch.arange(s, device=cuda_device) < n_visible
+    if per_row:
+        keep = torch.rand((bk, s), device=cuda_device, generator=g) > 0.3
+        keep[:, 0] = True
+        mask = torch.where(keep & visible, 0.0, float("-inf"))[:, None, None, :].contiguous()
+    else:
+        mask = torch.where(visible, 0.0, float("-inf"))[None, None, None, :]
+    atol, rtol = E_BOUNDS[dtype]
+    for layer in (0, 1):
+        got = self_decode._self_decode_cuda(q, k, v, anc, mask, layer, beam, n_visible, cluster)
+        kl, vl = (x[layer, ..., :n_visible] for x in (k, v))
+        want = attention.attention_kt_ancestry(q, kl, vl, anc[..., :n_visible],
+                                               mask[..., :n_visible])
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 48, 80, 128])
+@pytest.mark.parametrize("t", [1, 65, 1500])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_encoder_attention_head_dims_on_cuda(cuda_device, d, t, dtype):
+    """Kernel B at head dims other than 64: 32 and 48 on the 64-column
+    instantiation (the columns past D zero-filled by TMA), 80 and 128 on
+    the 128-column one; held as the D = 64 test holds it (1e-2, and 0.2
+    of the outputs' RMS). A head dim past 128 raises, naming ROADMAP."""
+    g = torch.Generator(device=cuda_device).manual_seed(t * 7 + d)
+    q, k, v = (torch.randn((2, t, 3, d), device=cuda_device, generator=g).to(dtype)
+               for _ in range(3))
+    got = attention.encoder_attention(q, k, v)
+    want = attention._xla_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=0)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 0.2 * float(want.float().pow(2).mean().sqrt()), err
+    wide = torch.zeros((1, 8, 2, 136), device=cuda_device, dtype=dtype)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention.encoder_attention(wide, wide, wide)
 
 
 @pytest.mark.cuda

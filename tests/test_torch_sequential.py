@@ -429,17 +429,20 @@ def _check_languages(got, want):
 # ---------------------------------------------------------------------------
 
 
-@functools.partial(jax.jit, static_argnums=(5, 6, 7))
-def _jax_forced(stacked, feats, tokens, kv_valid, suppress_mask, dims, n_prompt, opts):
+@functools.partial(jax.jit, static_argnums=(5, 6, 7, 8, 9))
+def _jax_forced(stacked, feats, tokens, kv_valid, suppress_mask, dims, n_prompt, opts, dtype,
+                kv_int8):
     """JAX's filtered f32 log-probabilities ``[n - n_prompt, V]`` of the
     tokens of the one row ``tokens`` ``[1, n]`` after its prompt,
-    teacher-forced in one prefill over the int8 cross-KV, with each step's
-    rules (its history is the row itself)."""
-    ckv = jws.quantize_cross_kv_stacked(
-        jws.cross_attention_kv_stacked(stacked, feats.astype(jnp.bfloat16), dims))
+    teacher-forced in one prefill at the engine's width (``dtype``; the
+    int8 cross-KV or, without ``kv_int8``, the float one), with each
+    step's rules (its history is the row itself)."""
+    ckv = jws.cross_attention_kv_stacked(stacked, feats.astype(dtype), dims)
+    if kv_int8:
+        ckv = jws.quantize_cross_kv_stacked(ckv)
     pos_offset = jnp.sum(~kv_valid[:, :n_prompt], axis=1).astype(jnp.int32)
-    cache = jws.init_stacked_cache(1, dims, jnp.bfloat16, cache_len=kv_valid.shape[1])
-    x, _ = jws.prefill_cache_stacked(stacked, tokens, cache, ckv, dims, jnp.bfloat16,
+    cache = jws.init_stacked_cache(1, dims, dtype, cache_len=kv_valid.shape[1])
+    x, _ = jws.prefill_cache_stacked(stacked, tokens, cache, ckv, dims, dtype,
                                      kv_valid=kv_valid, pos_offset=pos_offset)
     filt = jw._vocab_logits(stacked["decoder"], x[0, n_prompt - 1 : -1]) + suppress_mask[None]
     filt = filt.at[0, jnp.asarray([opts.blank_token, opts.eot])].set(-jnp.inf)
@@ -454,9 +457,9 @@ def _jax_forced(stacked, feats, tokens, kv_valid, suppress_mask, dims, n_prompt,
 def _jax_forced_logprobs(jeng, jfeats, prompt, valid, hyp, opts, suppress_mask):
     """JAX's filtered log-probabilities of hypothesis ``hyp`` (generated
     tokens, then EOT unless it ran to the limit) after the prompt
-    (left-padded, ``valid`` its real slots), and that target. The row is
-    padded to the token limit, so one compile serves every hypothesis of
-    a prompt shape."""
+    (left-padded, ``valid`` its real slots), and that target, at the
+    engine's width. The row is padded to the token limit, so one compile
+    serves every hypothesis of a prompt shape."""
     n_prompt = len(prompt)
     target = list(hyp) + ([opts.eot] if len(hyp) < opts.max_new_tokens else [])
     n = n_prompt + opts.max_new_tokens
@@ -466,7 +469,7 @@ def _jax_forced_logprobs(jeng, jfeats, prompt, valid, hyp, opts, suppress_mask):
     kv_valid[0, :n_prompt] = valid
     logprobs = _jax_forced(jeng._params_stacked, jfeats, jnp.asarray([tokens], jnp.int32),
                            jnp.asarray(kv_valid), jnp.asarray(suppress_mask), jeng.dims, n_prompt,
-                           opts)
+                           opts, jeng.dtype, jeng.kv_int8)
     return np.asarray(logprobs)[: len(target)], target
 
 

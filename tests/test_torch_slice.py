@@ -27,9 +27,8 @@ from whisper_nemo_tpu.ops.mel import log_mel_spectrogram_batch as jax_mel_batch
 from whisper_nemo_tpu.text.tokenizer import WhisperTokenizer as JaxTokenizer
 from whisper_nemo_tpu.text.tokenizer import get_suppressed_tokens
 from whisper_nemo_tpu.vad.energy import get_speech_timestamps as jax_speech_timestamps
-from whisper_nemo_tpu_torch.asr import BatchedInferencePipeline, WhisperModel, load_model
+from whisper_nemo_tpu_torch.asr import BatchedInferencePipeline, WhisperModel
 from whisper_nemo_tpu_torch.engine.checkpoint import params_from_jax
-from whisper_nemo_tpu_torch.engine.transcribe import WhisperEngine
 from whisper_nemo_tpu_torch.models.whisper import WhisperDims
 from whisper_nemo_tpu_torch.text.tokenizer import WhisperTokenizer
 from whisper_nemo_tpu_torch.vad.energy import DEVICE_ENERGY_FRAMES, get_speech_timestamps
@@ -172,9 +171,8 @@ def test_speech_timestamps_match_jax(seconds):
 
 
 def test_facade_refuses_what_the_port_lacks():
-    """A path argument (the audio decoder is not ported), compute float32
-    and openai-whisper's default f32 width, and device "auto" raise
-    instead of running something else."""
+    """A path argument (the audio decoder is not ported) and device
+    "auto" raise instead of running something else."""
     model = WhisperModel(
         "tiny.en", device="cpu", compute_type="int8",
         params=params_from_jax(jw.init_whisper_params(jax.random.PRNGKey(0), jw.WhisperDims(*DIMS))),
@@ -187,10 +185,6 @@ def test_facade_refuses_what_the_port_lacks():
         model.transcribe(pathlib.Path("speech.opus"))
     with pytest.raises(ValueError, match="explicit"):
         WhisperModel("tiny.en", device="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        WhisperEngine("tiny.en", "float32", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_model("tiny.en", device="cpu")
 
 
 def test_port_imports_no_jax():

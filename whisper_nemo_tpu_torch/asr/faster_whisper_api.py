@@ -23,7 +23,8 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..engine.transcribe import ROADMAP_NOTE, Segment, TranscriptionInfo, WhisperEngine
+from ..engine.decode import ROADMAP_NOTE
+from ..engine.transcribe import Segment, TranscriptionInfo, WhisperEngine
 from ..text.languages import langs_to_iso
 
 
@@ -70,7 +71,7 @@ def _attach_word_timestamps(
 
 def _waveform(audio) -> np.ndarray:
     if isinstance(audio, (str, os.PathLike)):
-        raise NotImplementedError(f"decoding an audio file is {ROADMAP_NOTE} (item 5); pass a"
+        raise NotImplementedError(f"decoding an audio file is {ROADMAP_NOTE} (item 3); pass a"
                                   " 16 kHz float32 waveform")
     return np.asarray(audio, np.float32)
 
@@ -80,13 +81,14 @@ class WhisperModel:
         self,
         model_size_or_path: str = "tiny",
         device: str = "cuda",
-        compute_type: str = "int8",
+        compute_type: str = "default",
         seed: int = 0,
         **engine_kwargs,
     ):
         """``device`` is explicit ("cuda", "cuda:N" or "cpu"); there is no
-        "auto". ``seed`` makes the random weights used when no checkpoint
-        is found."""
+        "auto". ``compute_type`` defaults to the JAX package's "default"
+        (f32; see ``WhisperEngine``). ``seed`` makes the random weights used
+        when no checkpoint is found."""
         if device == "auto":
             raise ValueError('device must be explicit: "cuda", "cuda:N" or "cpu"')
         self.engine = WhisperEngine(

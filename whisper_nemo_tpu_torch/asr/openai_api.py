@@ -28,8 +28,8 @@ class OpenAIWhisperModel:
                  **engine_kwargs):
         """``device`` is explicit ("cuda", "cuda:N" or "cpu"). Without
         ``compute_type`` large models run bf16 and the others
-        openai-whisper's f32 ("default"), which the port does not run yet
-        and refuses; the serving handler passes int8."""
+        openai-whisper's f32 ("default"), as in the JAX package; the
+        serving handler passes int8."""
         if device == "auto":
             raise ValueError('device must be explicit: "cuda", "cuda:N" or "cpu"')
         compute = compute_type or ("bfloat16" if name.startswith("large") else "default")

@@ -6,7 +6,8 @@
 // masked by segment ids).
 //
 // out[b, t, h, :] = softmax_s(q[b, t, h, :] . k[b, s, h, :] / sqrt(D)) v[b, s, h, :]
-// on [B, T, H, D] bf16 tensors, D = 64; the output in bf16 or f32.
+// on [B, T, H, D] bf16 tensors, D a multiple of 8 up to 128; the output in
+// bf16 or f32.
 //
 // Bound: tensor-core FLOPs. At the encoder's T = 1500 each (b, h) does
 // 4*T*T*D = 576 MFLOP over 768 KB of bf16 operands, far above the card's
@@ -33,6 +34,18 @@
 // third K/V stage, or overlapping a warpgroup's softmax with its next
 // Q K^T, did not run faster on the H100.
 //
+// Head dims: the kernel is instantiated at kD = 64 (three consumer
+// warpgroups) and kD = 128 (two: a consumer then holds 64 more output
+// accumulators, and two warpgroups at 240 registers fit the register file
+// where three do not). A tile row of kD = 128 is two 128-byte swizzle
+// atoms, so each tile is two TMA boxes of 64 columns stored one after the
+// other, Q K^T runs eight k16 steps, and P V is two m64n64k16 products per
+// 16 keys, one per 64 output columns. A true D below the instantiation's
+// (a multiple of 8, for TMA's 16-byte strides) is the tensor maps'
+// innermost extent: TMA fills the columns past D with zeros, which changes
+// neither Q K^T nor the first D output columns, and only those are stored.
+// The softmax scale is D^-1/2 of the true D, passed in.
+//
 // The tensor maps are encoded on the host in the C entry point, with
 // cuTensorMapEncodeTiled looked up through cudaGetDriverEntryPointByVersion,
 // so the library needs no -lcuda.
@@ -45,18 +58,26 @@
 
 namespace {
 
-constexpr int kD = 64;          // head dim: one 128-byte bf16 row
-constexpr int kConsumers = 3;   // consumer warpgroups, 64 query rows each
-constexpr int kBM = 64 * kConsumers;  // queries per CTA
 constexpr int kBN = 128;        // keys per tile
 constexpr int kStages = 2;      // K/V ring depth
-constexpr int kThreads = 128 * (1 + kConsumers);
-constexpr uint32_t kTileBytes = kBN * kD * 2;  // one Q, K or V tile: 16 KB
 
+// The instantiation of head dim kD: consumer warpgroups and their registers
+template <int kD>
+struct Cfg {
+  static constexpr int kHalves = kD / 64;  // 64-column boxes (128-byte rows) per tile row
+  static constexpr int kConsumers = kD == 64 ? 3 : 2;  // 64 query rows each
+  static constexpr int kBM = 64 * kConsumers;          // queries per CTA
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kConsumerRegs = kD == 64 ? 160 : 240;
+  static constexpr uint32_t kTileBytes = kBN * kD * 2;  // one K or V tile
+};
+
+template <int kD>
 struct Smem {  // 1024-byte aligned: the 128-byte swizzle's atom
-  __nv_bfloat16 q[kBM * kD];  // kConsumers boxes of 64 rows
-  __nv_bfloat16 k[kStages][kBN * kD];
-  __nv_bfloat16 v[kStages][kBN * kD];
+  // each tile as kHalves boxes of [rows][64], one after the other
+  __nv_bfloat16 q[Cfg<kD>::kHalves][Cfg<kD>::kBM * 64];  // kConsumers x 64 rows
+  __nv_bfloat16 k[kStages][Cfg<kD>::kHalves][kBN * 64];
+  __nv_bfloat16 v[kStages][Cfg<kD>::kHalves][kBN * 64];
   uint64_t q_full;
   uint64_t full[kStages];
   uint64_t empty[kStages];
@@ -90,14 +111,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// One box (64 x 1 x rows x 1 elements) at (0, h, t, b) into `dst`.
+// One box (64 x 1 x rows x 1 elements) at (c, h, t, b) into `dst`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int h, int t, int b) {
+                                         int c, int h, int t, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-        "r"(0), "r"(h), "r"(t), "r"(b)
+        "r"(c), "r"(h), "r"(t), "r"(b)
       : "memory");
 }
 
@@ -161,14 +182,18 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int kD, typename OutT>
+__global__ void __launch_bounds__(Cfg<kD>::kThreads, 1)
 encoder_attention_kernel(const __grid_constant__ CUtensorMap q_map,
                          const __grid_constant__ CUtensorMap k_map,
                          const __grid_constant__ CUtensorMap v_map,
-                         OutT* __restrict__ out, int n_t, int n_h, float scale_log2) {
+                         OutT* __restrict__ out, int n_t, int n_h, int d_true,
+                         float scale_log2) {
+  using C = Cfg<kD>;
+  constexpr int kHalves = C::kHalves, kConsumers = C::kConsumers, kBM = C::kBM;
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  Smem<kD>& sm = *reinterpret_cast<Smem<kD>*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                               ~uintptr_t(1023));
   const int m0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (n_t + kBN - 1) / kBN;
   const int wg = threadIdx.x / 128;
@@ -188,24 +213,34 @@ encoder_attention_kernel(const __grid_constant__ CUtensorMap q_map,
     if (threadIdx.x == 0) {
       mbar_expect_tx(&sm.q_full, kBM * kD * 2);
       for (int c = 0; c < kConsumers; ++c)
-        tma_load(sm.q + c * 64 * kD, &q_map, &sm.q_full, h, m0 + 64 * c, b);
+#pragma unroll
+        for (int hf = 0; hf < kHalves; ++hf)
+          tma_load(sm.q[hf] + c * 64 * 64, &q_map, &sm.q_full, 64 * hf, h, m0 + 64 * c, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages;
         if (j >= kStages) mbar_wait(&sm.empty[s], ((j / kStages) - 1) & 1);
-        mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
-        tma_load(sm.k[s], &k_map, &sm.full[s], h, j * kBN, b);
-        tma_load(sm.v[s], &v_map, &sm.full[s], h, j * kBN, b);
+        mbar_expect_tx(&sm.full[s], 2 * C::kTileBytes);
+#pragma unroll
+        for (int hf = 0; hf < kHalves; ++hf) {
+          tma_load(sm.k[s][hf], &k_map, &sm.full[s], 64 * hf, h, j * kBN, b);
+          tma_load(sm.v[s][hf], &v_map, &sm.full[s], 64 * hf, h, j * kBN, b);
+        }
       }
     }
   } else {  // consumer warpgroups: 64 query rows each
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n");
+    if constexpr (C::kConsumerRegs == 160)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n");
+    else
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int tid = threadIdx.x - 128 * wg, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, tig = lane & 3;
-    const __nv_bfloat16* sq = sm.q + (wg - 1) * 64 * kD;
+    const int q_off = (wg - 1) * 64 * 64;  // this warpgroup's rows within each half
 
-    float o[kD / 2];
+    float o[kHalves][32];  // 64 output columns per half
 #pragma unroll
-    for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+    for (int hf = 0; hf < kHalves; ++hf)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[hf][i] = 0.f;
     float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};  // rows g, g + 8
 
     mbar_wait(&sm.q_full, 0);
@@ -218,8 +253,8 @@ encoder_attention_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < kD / 16; ++ks)
-        wgmma_m64n128k16_ss(sc, smem_desc(sq + ks * 16, 16, 1024),
-                            smem_desc(sm.k[s] + ks * 16, 16, 1024), ks);
+        wgmma_m64n128k16_ss(sc, smem_desc(sm.q[ks / 4] + q_off + (ks % 4) * 16, 16, 1024),
+                            smem_desc(sm.k[s][ks / 4] + (ks % 4) * 16, 16, 1024), ks);
       wgmma_commit();
       wgmma_wait_all();
       fence_operands(sc);
@@ -253,7 +288,9 @@ encoder_attention_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rowsum[r];
 #pragma unroll
-      for (int i = 0; i < kD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      for (int hf = 0; hf < kHalves; ++hf)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[hf][i] *= alpha[(i >> 1) & 1];
 
       // O += P V: the S accumulator layout is the register A layout of P
       uint32_t pa[kBN / 16][4];
@@ -267,10 +304,13 @@ encoder_attention_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)  // 16 keys = 16 rows of 128 bytes a step
-        wgmma_m64n64k16_rs(o, pa[kk], smem_desc(sm.v[s] + kk * 16 * kD, 1024, 1024));
+#pragma unroll
+        for (int hf = 0; hf < kHalves; ++hf)
+          wgmma_m64n64k16_rs(o[hf], pa[kk], smem_desc(sm.v[s][hf] + kk * 16 * 64, 1024, 1024));
       wgmma_commit();
       wgmma_wait_all();
-      fence_operands(o);
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf) fence_operands(o[hf]);
       mbar_arrive(&sm.empty[s]);
     }
 
@@ -279,16 +319,20 @@ encoder_attention_kernel(const __grid_constant__ CUtensorMap q_map,
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     }
-    const int64_t row_stride = (int64_t)n_h * kD;
+    const int64_t row_stride = (int64_t)n_h * d_true;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int t = m0 + (wg - 1) * 64 + warp * 16 + g + 8 * r;
       if (t >= n_t) continue;
       const float inv = 1.f / l_run[r];
-      OutT* dst = out + ((int64_t)b * n_t + t) * row_stride + (int64_t)h * kD + 2 * tig;
+      OutT* dst = out + ((int64_t)b * n_t + t) * row_stride + (int64_t)h * d_true + 2 * tig;
 #pragma unroll
-      for (int n8 = 0; n8 < kD / 8; ++n8)
-        store2(dst + n8 * 8, o[4 * n8 + 2 * r] * inv, o[4 * n8 + 2 * r + 1] * inv);
+      for (int hf = 0; hf < kHalves; ++hf)
+#pragma unroll
+        for (int n8 = 0; n8 < 8; ++n8)
+          if (64 * hf + n8 * 8 < d_true)  // D is a multiple of 8
+            store2(dst + 64 * hf + n8 * 8, o[hf][4 * n8 + 2 * r] * inv,
+                   o[hf][4 * n8 + 2 * r + 1] * inv);
     }
   }
 }
@@ -316,13 +360,14 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The [B, T, H, 64] bf16 tensor at `base` as dims (D, H, T, B), boxes of
-// 64 x 1 x rows x 1 with the 128-byte swizzle; rows past T read as zeros.
-bool make_map(CUtensorMap* map, const void* base, int B, int n_t, int n_h, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)n_h, (cuuint64_t)n_t, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)kD * 2, (cuuint64_t)n_h * kD * 2,
-                                 (cuuint64_t)n_t * n_h * kD * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kD, 1, (cuuint32_t)rows, 1};
+// The [B, T, H, D] bf16 tensor at `base` as dims (D, H, T, B), boxes of
+// 64 x 1 x rows x 1 with the 128-byte swizzle; columns past D and rows past
+// T read as zeros.
+bool make_map(CUtensorMap* map, const void* base, int B, int n_t, int n_h, int D, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)n_h, (cuuint64_t)n_t, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)n_h * D * 2,
+                                 (cuuint64_t)n_t * n_h * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                         strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -330,36 +375,45 @@ bool make_map(CUtensorMap* map, const void* base, int B, int n_t, int n_h, int r
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename OutT>
+template <int kD, typename OutT>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int n_t, int n_h,
-           cudaStream_t stream) {
+           int D, cudaStream_t stream) {
+  using C = Cfg<kD>;
   if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap maps[3];
-  if (!make_map(&maps[0], q, B, n_t, n_h, 64) || !make_map(&maps[1], k, B, n_t, n_h, kBN) ||
-      !make_map(&maps[2], v, B, n_t, n_h, kBN))
+  if (!make_map(&maps[0], q, B, n_t, n_h, D, 64) || !make_map(&maps[1], k, B, n_t, n_h, D, kBN) ||
+      !make_map(&maps[2], v, B, n_t, n_h, D, kBN))
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem) + 1024;  // + the 1024-byte alignment
+  const int smem = (int)sizeof(Smem<kD>) + 1024;  // + the 1024-byte alignment
   const cudaError_t err = cudaFuncSetAttribute(
-      encoder_attention_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      encoder_attention_kernel<kD, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)kD);
-  const dim3 grid((n_t + kBM - 1) / kBM, n_h, B);
-  encoder_attention_kernel<OutT><<<grid, kThreads, smem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<OutT*>(out), n_t, n_h, scale_log2);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+  const dim3 grid((n_t + C::kBM - 1) / C::kBM, n_h, B);
+  encoder_attention_kernel<kD, OutT><<<grid, C::kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<OutT*>(out), n_t, n_h, D, scale_log2);
   return (int)cudaGetLastError();
+}
+
+template <typename OutT>
+int launch_d(const void* q, const void* k, const void* v, void* out, int B, int n_t, int n_h,
+             int D, cudaStream_t stream) {
+  return D <= 64 ? launch<64, OutT>(q, k, v, out, B, n_t, n_h, D, stream)
+                 : launch<128, OutT>(q, k, v, out, B, n_t, n_h, D, stream);
 }
 
 }  // namespace
 
-// q, k and v are [B, T, H, 64] bf16, 16-byte aligned; out is [B, T, H, 64]
-// bf16 (out_dtype 0) or f32 (out_dtype 1). Returns a cudaError_t code (0 on
-// success). Launches on `stream`, does not synchronise, allocates nothing.
+// q, k and v are [B, T, H, D] bf16, 16-byte aligned, D a multiple of 8 up to
+// 128; out is [B, T, H, D] bf16 (out_dtype 0) or f32 (out_dtype 1). Returns a
+// cudaError_t code (0 on success). Launches on `stream`, does not
+// synchronise, allocates nothing.
 extern "C" int wnt_encoder_attention(const void* q, const void* k, const void* v, void* out,
                                      int B, int T, int H, int D, int out_dtype, void* stream) {
-  if (B < 1 || T < 1 || H < 1 || D != kD || B > 65535 || H > 65535)
+  if (B < 1 || T < 1 || H < 1 || D < 8 || D > 128 || D % 8 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   if (out_dtype == 0)
-    return launch<__nv_bfloat16>(q, k, v, out, B, T, H, (cudaStream_t)stream);
-  if (out_dtype == 1) return launch<float>(q, k, v, out, B, T, H, (cudaStream_t)stream);
+    return launch_d<__nv_bfloat16>(q, k, v, out, B, T, H, D, (cudaStream_t)stream);
+  if (out_dtype == 1) return launch_d<float>(q, k, v, out, B, T, H, D, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,8 +6,9 @@ no-speech probability, temperature sampling for the
 fallback ladder, a left-padded conditioning prefix, and language
 detection. The JAX package's ``lax.while_loop`` is an eager loop here
 that stops as soon as every window has emitted EOT. The cross-KV is the
-int8 decode layout (kernel A on a CUDA tensor); beam search selects each
-lane's history through an ancestry map (kernel E).
+int8 decode layout at ``kv_bits`` (kernel A on a CUDA tensor; the reduced
+widths) or, with ``kv_bits=None``, the float form (the f32 widths); beam
+search selects each lane's history through an ancestry map (kernel E).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from ..models.whisper import (
     embed_tokens,
 )
 from ..models.whisper_stacked import (
-    cross_kv_decode_layout_fused,
+    cross_kv_for_decode,
     decode_step_stacked,
     init_stacked_cache,
     prefill_cache_stacked,
@@ -140,8 +141,8 @@ def _filter_logits(logits, static, tokens, pos: int, n_prompt: int, opts: Decode
 
 
 def _prefill(params, audio_features, prompt, dims, opts, dtype, kv_bits, prompt_valid):
-    """What both decodes start from: the decode-layout cross-KV, the
-    prompt prefilled at width B into a fresh cache of ``cache_len``
+    """What both decodes start from: the cross-KV (the int8 decode layout
+    at ``kv_bits``, the float form at None), the prompt prefilled at width B into a fresh cache of ``cache_len``
     positions, the hidden state predicting the first new token, the
     no-speech probability (read at the SOT position's output), and the
     left-padding mask and position shift of a conditioning prefix
@@ -158,7 +159,7 @@ def _prefill(params, audio_features, prompt, dims, opts, dtype, kv_bits, prompt_
             [valid, torch.ones((b, cache_len - n_prompt), dtype=torch.bool, device=dev)], dim=1
         )
         pos_offset = (~valid).sum(dim=1)
-    cross_kv = cross_kv_decode_layout_fused(params, audio, dims, bits=kv_bits)
+    cross_kv = cross_kv_for_decode(params, audio, dims, kv_bits)
     cache = init_stacked_cache(b, dims, dtype, cache_len, dev)
     x_pf, cache = prefill_cache_stacked(
         params, prompt, cache, cross_kv, dims, dtype, kv_valid=kv_valid, pos_offset=pos_offset
@@ -188,7 +189,7 @@ def greedy_decode(
     dims: WhisperDims,
     opts: DecodeOptions,
     dtype=torch.bfloat16,
-    kv_bits: int = 8,
+    kv_bits: Optional[int] = 8,  # None: the float cross-KV
     prompt_valid: Optional[torch.Tensor] = None,  # [B, n_prompt] bool
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int]:
@@ -288,7 +289,7 @@ def beam_decode(
     opts: DecodeOptions,
     beam_size: int = 5,
     dtype=torch.bfloat16,
-    kv_bits: int = 8,
+    kv_bits: Optional[int] = 8,  # None: the float cross-KV
     prompt_valid: Optional[torch.Tensor] = None,  # [B, n_prompt] bool
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """Batched beam search (faster-whisper's default, beam 5). Returns

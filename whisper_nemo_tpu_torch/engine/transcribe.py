@@ -21,6 +21,7 @@ it.
 
 from __future__ import annotations
 
+import functools
 import os
 import zlib
 from dataclasses import dataclass
@@ -43,7 +44,6 @@ from ..text.tokenizer import WhisperTokenizer, get_suppressed_tokens
 from ..vad.energy import get_speech_timestamps
 from .checkpoint import cast_floats, model_cache_dir, resolve_model, to_device
 from .decode import (
-    ROADMAP_NOTE,
     DecodeOptions,
     beam_decode,
     build_suppress_mask,
@@ -87,9 +87,13 @@ def compression_ratio(text: str) -> float:
     return len(data) / len(zlib.compress(data))
 
 
-# compute type -> activation dtype; every one of these stores the
-# cross-attention KV as int8 (the decode layout kernel A reads)
+# compute type -> activation dtype, as the JAX package maps them. The f32
+# widths keep f32 weights and a float cross-attention KV; the reduced
+# widths store bf16 weights (or int8 weight-only linears) and the int8
+# cross-attention KV of kernel A's decode layout.
 _COMPUTE_DTYPES = {
+    "default": torch.float32,
+    "float32": torch.float32,
     "int8": torch.bfloat16,
     "bfloat16": torch.bfloat16,
     "float16": torch.bfloat16,
@@ -105,6 +109,43 @@ def _window_at(wave: torch.Tensor, start_sample: int) -> torch.Tensor:
     return window
 
 
+# the largest beam kernels A and E take on the card (the plain versions
+# take any)
+MAX_CUDA_BEAM = 8
+
+
+def _check_beam(beam_size: int, device: torch.device) -> None:
+    if beam_size < 1:
+        raise ValueError(f"beam_size must be at least 1, got {beam_size}")
+    if device.type == "cuda" and beam_size > MAX_CUDA_BEAM:
+        raise NotImplementedError(
+            f"beam_size {beam_size} on a CUDA device: kernels A and E take beams of 1 to"
+            f" {MAX_CUDA_BEAM} (ROADMAP.md, known differences)"
+        )
+
+
+def _full_f32_at_f32_widths(method):
+    """Runs an engine method with full-f32 matrix products and
+    convolutions on the card (TF32 off) when the engine runs an f32 width,
+    as the JAX package computes on the CPU, where the port is held against
+    it; the caller's settings come back after the call. The reduced widths
+    leave them as they are. The settings are process-wide: a thread that
+    runs another model meanwhile sees them too."""
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        if self.dtype != torch.float32:
+            return method(self, *args, **kwargs)
+        saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            return method(self, *args, **kwargs)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+    return run
+
+
 class WhisperEngine:
     """Model + tokenizer + greedy, sampled or beam decode on one device."""
 
@@ -113,25 +154,44 @@ class WhisperEngine:
     def __init__(
         self,
         model_name: str = "tiny",
-        compute_type: str = "int8",
+        compute_type: str = "default",
         device="cuda",
         params=None,
         dims: Optional[WhisperDims] = None,
         tokenizer: Optional[WhisperTokenizer] = None,
-        kv_bits: int = 8,
+        kv_bits: Optional[int] = None,
         seed: int = 0,
     ):
         """``device`` is explicit ("cuda", "cuda:N" or "cpu"). ``params``
         (the port's tree, f32) and ``dims`` skip resolution by name;
         otherwise a checkpoint is looked up, and missing that, the model
-        is initialized from ``seed`` on ``device``."""
+        is initialized from ``seed`` on ``device``. ``compute_type`` is
+        the JAX package's: "default" and "float32" run f32 with a float
+        cross-attention KV; "bfloat16" and "float16" run bf16 weights and
+        "int8" int8 weight-only linears, both with the int8 cross-KV at
+        ``kv_bits`` (8 or 4; default 8), which the f32 widths refuse. At
+        the f32 widths the engine's calls run f32 matrix products and
+        convolutions in full f32 (TF32 off) and restore the caller's
+        settings after (``_full_f32_at_f32_widths``)."""
         if compute_type not in _COMPUTE_DTYPES:
-            raise NotImplementedError(
-                f"compute_type {compute_type!r} (float cross-attention KV) is "
-                f"{ROADMAP_NOTE}; the port runs {sorted(_COMPUTE_DTYPES)}"
+            raise ValueError(
+                f"compute_type {compute_type!r} is none of {sorted(_COMPUTE_DTYPES)}"
             )
-        if kv_bits not in (4, 8):
-            raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
+        self.dtype = _COMPUTE_DTYPES[compute_type]
+        # the decode's cross-KV: the int8 decode layout at these bits at the
+        # reduced widths, as in the JAX package; the float form (None) at
+        # the f32 widths
+        if self.dtype == torch.float32:
+            if kv_bits is not None:
+                raise ValueError(
+                    f"compute_type {compute_type!r} keeps a float cross-attention KV; kv_bits"
+                    " applies to the reduced widths only"
+                )
+            self.cross_kv_bits: Optional[int] = None
+        else:
+            self.cross_kv_bits = 8 if kv_bits is None else kv_bits
+            if self.cross_kv_bits not in (4, 8):
+                raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
         self.device = torch.device(device)
         if params is None or dims is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -139,15 +199,14 @@ class WhisperEngine:
         params = to_device(params, self.device)
         if compute_type == "int8":
             params = quantize_whisper_params(params)
-        else:
+        elif self.dtype == torch.bfloat16:
+            # stored in bf16, as the JAX package stores them, not cast per use
             params = cast_floats(params, torch.bfloat16)
         # the encoder reads the per-layer blocks; the decoder loop reads
         # the layer-stacked tree (models.whisper_stacked)
         self.params = stack_decoder_blocks(params)
         self.dims = dims
         self.model_name = model_name
-        self.dtype = _COMPUTE_DTYPES[compute_type]
-        self.kv_bits = kv_bits
         self.multilingual = not model_name.endswith(".en")
         if tokenizer is None:
             tokenizer = _find_tokenizer(model_name, dims, self.multilingual)
@@ -178,11 +237,13 @@ class WhisperEngine:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
+    @_full_f32_at_f32_widths
     @torch.inference_mode()
     def encode_windows(self, mels: torch.Tensor) -> torch.Tensor:
         """``[B, n_mels, 3000]`` -> ``[B, 1500, D]``."""
         return encode(self.params, mels, self.dims, self.dtype)
 
+    @_full_f32_at_f32_widths
     def mel_window(self, audio) -> torch.Tensor:
         """Mel ``[n_mels, 3000]`` of a chunk (numpy or a tensor), padded or
         trimmed to 30 s on the device: kernel C on a CUDA device."""
@@ -190,6 +251,7 @@ class WhisperEngine:
             audio = torch.from_numpy(np.ascontiguousarray(audio, np.float32))
         return log_mel_spectrogram(_window_at(audio.to(self.device).float(), 0), self.dims.n_mels)
 
+    @_full_f32_at_f32_widths
     def detect_language(self, audio, return_all: bool = False):
         """Language of the first 30 s window: (code, probability), and with
         ``return_all`` also every (code, probability), most probable first
@@ -211,6 +273,7 @@ class WhisperEngine:
         ranked = sorted(zip(codes, p.tolist()), key=lambda cp: -cp[1])
         return codes[i], float(p[i]), ranked
 
+    @_full_f32_at_f32_widths
     def _decode_batch(
         self,
         feats: torch.Tensor,
@@ -246,7 +309,7 @@ class WhisperEngine:
         if beam_size > 1 and temperature == 0.0:
             out = beam_decode(
                 self.params, feats, prompt, suppress_mask, self.dims, opts,
-                beam_size=beam_size, dtype=self.dtype, kv_bits=self.kv_bits,
+                beam_size=beam_size, dtype=self.dtype, kv_bits=self.cross_kv_bits,
                 prompt_valid=prompt_valid,
             )
         else:
@@ -255,7 +318,7 @@ class WhisperEngine:
                 generator = torch.Generator(device=self.device).manual_seed(rng_seed)
             out = greedy_decode(
                 self.params, feats, prompt, suppress_mask, self.dims, opts,
-                dtype=self.dtype, kv_bits=self.kv_bits, prompt_valid=prompt_valid,
+                dtype=self.dtype, kv_bits=self.cross_kv_bits, prompt_valid=prompt_valid,
                 generator=generator,
             )
         tokens, length, sum_logprob, no_speech, steps = out
@@ -296,6 +359,7 @@ class WhisperEngine:
             )
         ).to(self.device)
 
+    @_full_f32_at_f32_widths
     def transcribe_batched(
         self,
         audio: np.ndarray,
@@ -306,8 +370,7 @@ class WhisperEngine:
         beam_size: int = 1,
         task: str = "transcribe",
     ) -> Tuple[List[Segment], TranscriptionInfo]:
-        if beam_size < 1:
-            raise ValueError(f"beam_size must be at least 1, got {beam_size}")
+        _check_beam(beam_size, self.device)
         duration = len(audio) / SAMPLE_RATE
         wave = torch.from_numpy(np.ascontiguousarray(audio, np.float32)).to(self.device)
         spans = get_speech_timestamps(audio, device=self.device, wave=wave)
@@ -368,6 +431,7 @@ class WhisperEngine:
         )
         return segments, info
 
+    @_full_f32_at_f32_widths
     def transcribe_sequential(
         self,
         audio: np.ndarray,
@@ -384,8 +448,7 @@ class WhisperEngine:
         task: str = "transcribe",
         initial_prompt: Optional[str] = None,
     ) -> Tuple[List[Segment], TranscriptionInfo]:
-        if beam_size < 1:
-            raise ValueError(f"beam_size must be at least 1, got {beam_size}")
+        _check_beam(beam_size, self.device)
         duration = len(audio) / SAMPLE_RATE
         wave = torch.from_numpy(np.ascontiguousarray(audio, np.float32)).to(self.device)
         time_map = None  # [(concat_start_s, orig_start_s, dur_s)]

@@ -1,14 +1,17 @@
 """Layer-stacked Whisper decoder: prefill and the decode step.
 
-Counterpart of ``whisper_nemo_tpu/models/whisper_stacked.py`` for the
-decode layout only: the cross-KV is the fused int8 ``[L, B, H, 2D, Kp]``
-array of ``ops/cross_decode.py`` on every device, and the self-attention
-cache is ``[L, B, H, D, S]`` (positions last). The layer loop is a Python
+Counterpart of ``whisper_nemo_tpu/models/whisper_stacked.py``. The
+cross-KV takes one of two forms, as in the JAX package: at the reduced
+widths (int8, bf16) the fused int8 ``[L, B, H, 2D, Kp]`` decode layout of
+``ops/cross_decode.py`` (kernel A on a CUDA tensor), at the f32 widths
+float K and V projected from the features, attended in plain torch (the
+JAX package's XLA einsums). The self-attention cache is ``[L, B, H, D,
+S]`` (positions last), in the compute dtype. The layer loop is a Python
 loop; kernels A and E receive the whole stack and the layer index. The
 cache is updated in place. Beam search runs the same step on ``B·K``
 rows with an ancestry map (kernel E) and the window's cross-KV shared by
-its ``K`` lanes (kernel A). A left-padded conditioning prompt is masked
-per row and position-shifted (``kv_valid``, ``pos_offset``).
+its ``K`` lanes. A left-padded conditioning prompt is masked per row and
+position-shifted (``kv_valid``, ``pos_offset``).
 """
 
 from __future__ import annotations
@@ -106,6 +109,48 @@ def cross_kv_decode_layout_fused(
     }
 
 
+def cross_kv_float(params: Dict[str, Any], audio: torch.Tensor, dims: WhisperDims) -> dict:
+    """Cross-attention K and V of every layer in the compute dtype, the
+    float form (the f32 widths): ``k`` ``[L, B, H, D, T]``, already times
+    D^-¼ (the JAX einsum path scales q and k by D^-¼ each; this does k's
+    product once instead of at every step, the same rounding), and ``v``
+    ``[L, B, H, T, D]``, each transposed once for the step's products."""
+    h = dims.n_text_head
+    d = dims.n_text_state // h
+    ks, vs = [], []
+    for blk in params["decoder"]["layers"]:
+        ca = blk["cross_attn"]
+        k = _proj_layer(ca["k"], audio, h)[0] * d**-0.25  # [B, T, H, D]
+        ks.append(k.permute(0, 2, 3, 1))
+        vs.append(_proj_layer(ca["v"], audio, h)[0].permute(0, 2, 1, 3))
+    return {"k": torch.stack(ks), "v": torch.stack(vs), "_k_len": audio.shape[1]}
+
+
+def _cross_attention_float(qc: torch.Tensor, cross_kv: dict, layer: int, beam: int = 1):
+    """``[B·beam, P, H, D]`` queries over one layer of the float cross-KV
+    of ``B`` windows, the ``beam`` lanes of a window sharing its K and V:
+    the JAX package's einsum path (``ops/attention._xla_attention``): q
+    times D^-¼, f32 logits, f32 softmax, weights in q's dtype."""
+    bk, p, h, d = qc.shape
+    w = bk // beam
+    q = (qc * d**-0.25).reshape(w, beam * p, h, d).transpose(1, 2)  # [B, H, beam·P, D]
+    logits = torch.matmul(q.float(), cross_kv["k"][layer].float())  # [B, H, beam·P, T]
+    weights = torch.softmax(logits, dim=-1).to(qc.dtype)
+    out = torch.matmul(weights, cross_kv["v"][layer])  # [B, H, beam·P, D]
+    return out.transpose(1, 2).reshape(bk, p, h, d)
+
+
+def cross_kv_for_decode(
+    params: Dict[str, Any], audio: torch.Tensor, dims: WhisperDims, kv_bits: Optional[int]
+) -> dict:
+    """The decode's cross-KV: the int8 decode layout at ``kv_bits`` (8 or
+    4; the reduced widths), or the float form when ``kv_bits`` is None
+    (the f32 widths)."""
+    if kv_bits is None:
+        return cross_kv_float(params, audio, dims)
+    return cross_kv_decode_layout_fused(params, audio, dims, bits=kv_bits)
+
+
 def init_stacked_cache(
     batch: int, dims: WhisperDims, dtype, cache_len: int, device
 ) -> dict:
@@ -171,10 +216,13 @@ def prefill_cache_stacked(
 
         xq = _layer_norm(blk["ln_cross"], x)
         qc = _split_heads(_linear(blk["cross_attn"]["q"], xq), n_head)
-        cross = _cross_prefill_declayout(
-            qc, cross_kv["kv_dec"][li], cross_kv["k_dec_scale"][li],
-            cross_kv["v_dec_scale"][li], cross_kv["_k_len"], cross_kv["_bits"],
-        )
+        if "kv_dec" in cross_kv:
+            cross = _cross_prefill_declayout(
+                qc, cross_kv["kv_dec"][li], cross_kv["k_dec_scale"][li],
+                cross_kv["v_dec_scale"][li], cross_kv["_k_len"], cross_kv["_bits"],
+            )
+        else:
+            cross = _cross_attention_float(qc, cross_kv, li)
         x = x + _linear(blk["cross_attn"]["o"], cross.reshape(b, p_len, -1))
         x = x + _mlp(blk["mlp_in"], blk["mlp_out"], _layer_norm(blk["ln2"], x))
     return _layer_norm(dec["ln"], x), cache
@@ -195,11 +243,11 @@ def decode_step_stacked(
 ) -> Tuple[torch.Tensor, dict]:
     """One decode step at position ``pos``: f32 logits ``[B, V]`` (or the
     final-norm hidden ``[B, D]`` with ``return_hidden``) and the cache,
-    updated in place. Cross-attention runs kernel A on a CUDA tensor.
-    Beam search passes ``anc`` (``[W, K, S]`` int32, ``B = W·K`` rows):
-    self-attention then selects each position's lane through it (kernel
-    E) over the never-reordered cache, and a window's ``K`` lanes share
-    its cross-KV. ``kv_valid`` and ``pos_offset`` serve a left-padded
+    updated in place. Cross-attention runs kernel A on a CUDA tensor over
+    the int8 decode layout, plain torch over the float form. Beam search
+    passes ``anc`` (``[W, K, S]`` int32, ``B = W·K`` rows): self-attention
+    then selects each position's lane through it (kernel E) over the
+    never-reordered cache, and a window's ``K`` lanes share its cross-KV. ``kv_valid`` and ``pos_offset`` serve a left-padded
     prompt, as in :func:`prefill_cache_stacked`: the mask becomes one row
     per batch row."""
     dec = params["decoder"]
@@ -212,7 +260,7 @@ def decode_step_stacked(
         mask = torch.where(visible, 0.0, float("-inf"))[None, None, None, :]
     else:
         mask = torch.where(visible[None] & kv_valid, 0.0, float("-inf"))[:, None, None, :]
-    kv_dec, k_len, bits = cross_kv["kv_dec"], cross_kv["_k_len"], cross_kv["_bits"]
+    quantized = "kv_dec" in cross_kv
     beam = 1 if anc is None else anc.shape[1]
     n_head = dims.n_text_head
     for li, blk in enumerate(dec["layers"]):
@@ -232,10 +280,13 @@ def decode_step_stacked(
 
         xq = _layer_norm(blk["ln_cross"], x)
         qc = _split_heads(_linear(blk["cross_attn"]["q"], xq), n_head)
-        cross = cross_attention_decode_layered(
-            qc, kv_dec, cross_kv["k_dec_scale"][li], cross_kv["v_dec_scale"][li],
-            li, k_len, bits=bits, beam=beam,
-        ).to(qc.dtype)
+        if quantized:
+            cross = cross_attention_decode_layered(
+                qc, cross_kv["kv_dec"], cross_kv["k_dec_scale"][li], cross_kv["v_dec_scale"][li],
+                li, cross_kv["_k_len"], bits=cross_kv["_bits"], beam=beam,
+            ).to(qc.dtype)
+        else:
+            cross = _cross_attention_float(qc, cross_kv, li, beam)
         x = x + _linear(blk["cross_attn"]["o"], cross.reshape(b, 1, -1))
         x = x + _mlp(blk["mlp_in"], blk["mlp_out"], _layer_norm(blk["ln2"], x))
     x = _layer_norm(dec["ln"], x)

@@ -7,14 +7,17 @@ for the decode self-attention cache.
 Kernel B (``csrc/encoder_attention.cu``) replaces the TPU kernel
 ``whisper_nemo_tpu/ops/attention.py:_flash_attention`` (the library Pallas
 flash attention it wraps). It serves unmasked self-attention, the Whisper
-encoder's and the wav2vec2 aligner's, at D = 64. It is bound by
+encoder's and the wav2vec2 aligner's, at every head dim D that is a
+multiple of 8 up to 128 (instantiated at 64 and at 128, with the columns
+past a smaller D zero-filled by TMA); a larger D raises. It is bound by
 tensor-core FLOPs (576 MFLOP per (batch, head) at T = 1500). One CTA per
 192-query tile: a producer warp streams 128-key K and V tiles by TMA into
 a two-stage ring, and three consumer warpgroups run both products on
 wgmma with an online f32 softmax, so the ``[B, H, T, T]`` scores (4.6 GB
 in f32 at B = 32) that the plain version materializes never exist. Its operands
-are bf16; f32 callers' inputs are rounded to bf16 here (round to nearest,
-as the TPU's default matmul precision does) and their output stays f32.
+are bf16: an f32 caller's q, k and v are rounded to bf16 here (round to
+nearest, as the TPU's default matmul precision does), and its output is
+written in f32 from the kernel's f32 accumulators.
 ``_xla_attention`` is its plain version: the CPU path and the kernel's
 oracle.
 """
@@ -60,13 +63,18 @@ _OUT_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
 def _encoder_attention_cuda(q, k, v):
-    """Launch kernel B on ``[B, T, H, 64]`` bf16 or f32 CUDA tensors; the
-    output has the inputs' dtype."""
+    """Launch kernel B on ``[B, T, H, D]`` bf16 or f32 CUDA tensors, D a
+    multiple of 8 up to 128; the output has the inputs' dtype."""
     b, t, h, d = q.shape
     if not (q.shape == k.shape == v.shape):
         raise ValueError(f"encoder attention needs equal shapes: {q.shape}, {k.shape}, {v.shape}")
-    if d != 64:
-        raise ValueError(f"encoder attention kernel takes head dim 64, got {d}")
+    if d > 128:
+        raise NotImplementedError(
+            f"kernel B takes head dims up to 128, got {d}: not served; see ROADMAP.md,"
+            " queue 3 (known differences)"
+        )
+    if d % 8:
+        raise ValueError(f"kernel B takes a head dim that is a multiple of 8, got {d}")
     if q.dtype not in _OUT_DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"encoder attention takes bf16 or f32, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.device.type != "cuda" or not (q.device == k.device == v.device):

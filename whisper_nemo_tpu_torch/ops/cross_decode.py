@@ -149,7 +149,9 @@ def _cross_attention_decode_cuda(q, kv_dec, k_scale, v_scale, layer, k_len, bits
     layer's ``k_scale``/``v_scale`` ``[H, D]`` f32 -> ``[W·beam, H, D]``
     f32, v_scale applied; the same function as
     ``_cross_attention_decode_plain(fold_q(q, k_scale), ...) · v_scale``.
-    ``cluster`` overrides :func:`_cluster_size` (1-8)."""
+    ``cluster`` overrides :func:`_cluster_size` (1-8) for measurement and
+    tests only (``chip_smoke.py``'s sweeps, the ``cuda`` tests): the
+    port's callers leave it unset."""
     bq, _, h, d = q.shape
     n_layers, n_windows, kh, rows, kp = kv_dec.shape
     if q.dtype not in _Q_DTYPES or kv_dec.dtype != torch.int8:

@@ -11,14 +11,19 @@ Kernel D (``csrc/viterbi.cu``) replaces the TPU kernel
 over rows: the JAX package runs the segmented path's rows through a
 vmapped ``lax.scan`` and only the global aligner through the Pallas
 kernel; here one kernel serves both. It is bound by latency, not bytes:
-T dependent steps, each a barrier and a load. At the segmented main
-bucket (R = 48, T = 2560, L = 1025) its traffic, about 504 MB of
-emissions read and 126 MB of backpointers written, takes 0.19 ms at
-3.35 TB/s, while the sweep is 2,560 steps in sequence. One CTA per row
-keeps alpha double-buffered in shared memory (a global scratch when
-2·L·4 bytes exceed the opt-in limit), threads stride over the states and
-prefetch the next step's emissions into registers before the barrier,
-and the same launch backtracks. ``_viterbi_forward_states`` and
+T dependent steps. At the segmented main bucket (R = 48, T = 2560,
+L = 1025) its traffic, about 504 MB of emissions read and 126 MB of
+backpointers written, takes 0.19 ms at 3.35 TB/s, while the sweep is
+2,559 steps in sequence. Since the recurrence only looks left, a row's
+states are cut into segments of one warp each (lane ``l`` holds states
+``s0 + l + 32i`` in registers and takes its left neighbours by shuffle),
+and each segment hands its last two states of every step to the next
+through shared memory, or distributed shared memory across the CTAs of
+a cluster: a wavefront with no block-wide barrier. A trellis wider than
+one cluster's 65,536 states is swept in passes, each handing its right
+edge to the next through a small global buffer. Emissions load into
+registers a few steps ahead, backpointers leave as coalesced 32-byte
+rows, and the same launch backtracks. ``_viterbi_forward_states`` and
 ``_viterbi_backtrack`` are its plain version: the CPU path and the
 kernel's oracle. All three agree bit for bit: one f32 add per state and
 step, an exact max, ties to stay, then prev, then skip (``argmax``'s
@@ -109,15 +114,14 @@ def _kernel():
     fn = lib.wnt_viterbi
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    smem = lib.wnt_viterbi_max_shared_states
-    smem.argtypes = [ctypes.c_int]
-    smem.restype = ctypes.c_int
-    return fn, smem
+    lib.wnt_viterbi_pass_states.restype = ctypes.c_int
+    return fn, lib.wnt_viterbi_pass_states()
 
 
 def _viterbi_cuda(e_states: torch.Tensor, allow_skip: torch.Tensor):
     """Launch kernel D: same contract as the plain forward sweep plus
-    backtrack."""
+    backtrack, at any number of states (a trellis wider than one pass
+    takes an edge buffer of ``[R, 2, T, 2]`` f32)."""
     if e_states.device.type != "cuda" or allow_skip.device != e_states.device:
         raise ValueError(
             f"kernel D takes emissions and skips on one CUDA device, got"
@@ -130,23 +134,20 @@ def _viterbi_cuda(e_states: torch.Tensor, allow_skip: torch.Tensor):
     if not (e_states.is_contiguous() and allow_skip.is_contiguous()):
         raise ValueError("kernel D takes contiguous emissions and skips")
     r, t, n_states = e_states.shape
-    if r == 0 or t == 0 or n_states == 0:
-        raise ValueError(f"kernel D takes a non-empty trellis, got {tuple(e_states.shape)}")
+    launch, pass_states = _kernel()
+    if r == 0 or t == 0 or n_states == 0 or r > 65535:
+        raise ValueError(
+            f"kernel D takes a non-empty trellis of at most 65535 rows, got {tuple(e_states.shape)}"
+        )
     dev = e_states.device
-    launch, max_shared_states = _kernel()
     alpha = torch.empty((r, n_states), dtype=torch.float32, device=dev)
     bps = torch.empty((r, t - 1, n_states), dtype=torch.int8, device=dev)
     path = torch.empty((r, t), dtype=torch.int32, device=dev)
-    # alpha's two buffers live in shared memory when they fit, else in
-    # this scratch
-    scratch = None
-    if n_states > max_shared_states(dev.index if dev.index is not None else torch.cuda.current_device()):
-        scratch = torch.empty((r, 2, n_states), dtype=torch.float32, device=dev)
+    edge = torch.empty((r, 2, t, 2), dtype=torch.float32, device=dev) if n_states > pass_states else None
     rc = launch(
         e_states.data_ptr(), allow_skip.view(torch.uint8).data_ptr(),
         alpha.data_ptr(), bps.data_ptr(), path.data_ptr(),
-        0 if scratch is None else scratch.data_ptr(),
-        r, t, n_states, _build.stream(dev),
+        None if edge is None else edge.data_ptr(), r, t, n_states, _build.stream(dev),
     )
     _build.check(rc, "viterbi")
     viterbi_batch.launches += 1
