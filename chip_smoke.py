@@ -25,9 +25,13 @@ Phases, one line each:
   3d. kernel F (beam cache permute) against its plain versions, bit for
      bit, out of place and in place, on the same cache, with
      index_select timed beside it as a yardstick;
-  3e. kernel C (single-window log-mel) against its plain version at 80
-     and 128 mel bands: a 30 s window, a 7.3 s one zero-padded to 30 s,
-     silence and a batch of 32 windows;
+  3e. kernel C (log-mel: a real FFT a frame and the bank's nonzero runs)
+     against its plain version and against a float64 evaluation of the
+     same formula at 80 and 128 mel bands: a 30 s window, a 7.3 s one
+     zero-padded to 30 s, silence and a batch of 32 windows; one window
+     and the batch timed by CUDA events and the profiler's device time,
+     with torch.stft (the STFT alone) timed beside them as a yardstick;
+     then 32 windows of white noise, printed and not held to the bounds;
   3f. kernels A, B and E at the sequential path's batch-1 shapes: A at
      one window, beam 5 and 1 (and at cluster sizes 2, 4 and 8); B at one
      window; E at B·K = 5 with a 384-position cache, one mask row per
@@ -60,7 +64,8 @@ Phases, one line each:
      bench.py's), then align_segments with the full-width (MMS-300M-sized)
      aligner in bf16 on a synthetic 150 wpm transcript, warm and timed;
      the kernels' launch counts are checked against the decode steps,
-     encoder batches, emission batches and Viterbi groups of each;
+     encoder batches (kernel C's batched mel and B), emission batches and
+     Viterbi groups of each;
   6b. stage times of both stages, measured apart, and the beam step's
      parts;
   6c. the sequential main path, the CLI's --batch-size 0 call:
@@ -75,7 +80,8 @@ Phases, one line each:
   6d. the main path at the default width: WhisperModel("medium.en",
      compute_type="default") (f32, float cross-KV) and the batched
      pipeline at beam 5 on one batch of windows (10 minutes of audio),
-     kernel E's launches checked against the steps and kernel A's at 0;
+     kernel E's launches checked against the steps, kernel C's at one
+     (the batch's mel) and kernel A's at 0;
      then the f32 beam step's device time;
   7. the card's name and power limit, the kernels' JSON line, and last
      {"ok": true, "device": {...}}.
@@ -114,8 +120,14 @@ BOUND_E = (1e-2, 1e-2)  # |kernel - plain| <= atol + rtol * |plain|
 BOUND_E_F32 = (1e-4, 1e-4)
 BOUND_F = 0.0  # a copy: bit-equal
 # Kernel C against its plain version, after whisper's normalization (values
-# of order 1): the same f32 products summed in another order
+# of order 1): an f32 FFT against f32 dense products, each with its own
+# rounding (at 128 mels the plain version's own distance from float64 is of
+# the same order)
 BOUND_C = 1e-4
+# Kernel C against the same formula evaluated in float64, after whisper's
+# normalization: the f32 FFT's own rounding (the CPU tests hold a numpy
+# model of its factorization to the same bound)
+BOUND_C_F64 = 5e-5
 # Phase 5b, f32 emissions of a 2-layer wav2vec2 (log-probs of order 1-10):
 # kernel B rounds its f32 operands to bf16 for the tensor cores (2^-8
 # relative), and the conv stack and linears sum in another order
@@ -425,20 +437,36 @@ def kernel_c_bound(n_windows: int, n_mels: int) -> tuple:
 
 
 def kernel_c_design_ops(n_mels: int) -> float:
-    """The f32 operations kernel C's design runs on one window, beside
-    what the function needs (``kernel_c_bound``): the DFT as frames
-    ``[3000, 400]`` times the cosine and sine bases ``[400, 201]``, and the
-    mel step as a dense product with the bank ``[201, n_mels]``."""
-    frames, n_fft, bins = 3000, 400, 201
-    return (2 * 2 * frames * n_fft * bins + 3 * frames * bins + 2 * frames * bins * n_mels
-            + 2 * frames * n_mels)
+    """The f32 operations kernel C's design runs on one 30 s window, beside
+    what the function needs (``kernel_c_bound``). Per frame: the window
+    (400 products); the 200-point complex FFT as 8 x 25: eight 25-point
+    DFTs, each ten radix-5 butterflies (52 operations) and 40 twiddle
+    products (6), then 25 radix-8 butterflies (56); the real split and the
+    power, 24 a pair of bins over 101 pairs; one multiply-add for each
+    nonzero weight of the bank; the clamp and log10 (2 an output)."""
+    from whisper_nemo_tpu_torch.ops import mel
+
+    nnz = int(np.count_nonzero(mel.mel_filter_bank(mel.N_FFT // 2 + 1, n_mels)))
+    return mel.N_FRAMES * (mel.N_FFT + 8 * (10 * 52 + 40 * 6) + 25 * 56 + 101 * 24 + 2 * nnz
+                           + 2 * n_mels)
+
+
+def _kernel_ms(prof: dict, name: str) -> float:
+    """Device ms per call of the kernels whose name holds ``name``, from
+    ``profiled_device_ms``; NaN where the profiler saw none."""
+    hits = [ms for k, ms in prof.items() if name in k]
+    return sum(hits) if hits else float("nan")
 
 
 def phase_kernel_c(seed: int) -> dict:
-    """Kernel C against its plain version (cuBLAS f32, TF32 off) after
-    whisper's normalization, at 80 and 128 mel bands, on one 30 s window,
-    a 7.3 s one zero-padded to 30 s, silence (every bin at the clamp,
-    exactly) and a batch of 32 windows; times per window."""
+    """Kernel C against its plain version (cuBLAS f32, TF32 off) and
+    against the same formula in float64, after whisper's normalization,
+    at 80 and 128 mel bands, on one 30 s window, a 7.3 s one zero-padded
+    to 30 s, silence (every bin at the clamp, exactly) and a batch of 32
+    windows. Times per call (CUDA events; the profiler's device time for
+    one window and the batch), beside the plain version and torch.stft:
+    cuFFT's STFT alone, not the whole function, which no single PyTorch
+    call computes (the port never calls it)."""
     import torch
 
     from whisper_nemo_tpu_torch.ops import mel
@@ -452,6 +480,7 @@ def phase_kernel_c(seed: int) -> dict:
         "silence": np.zeros((1, mel.N_SAMPLES), np.float32),
         "batch of 32": speechlike(32 * 30.0, seed + 7).reshape(32, mel.N_SAMPLES),
     }
+    hann = torch.hann_window(mel.N_FFT, periodic=True, device=dev)
     out = {}
     for n_mels in (80, 128):
         for case, waves_np in cases.items():
@@ -459,27 +488,64 @@ def phase_kernel_c(seed: int) -> dict:
             n = waves.shape[0]
             got = mel._log_mel_cuda(waves, n_mels)
             want = mel._log_mel_plain(waves, n_mels)
+            exact = mel._log_mel_plain(waves, n_mels, torch.float64)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got).all()), "kernel C gave non-finite values")
             err = float((mel._finalize(got) - mel._finalize(want)).abs().max())
+            err64 = float((mel._finalize(got.double()) - mel._finalize(exact)).abs().max())
+            plain_err64 = float((mel._finalize(want.double()) - mel._finalize(exact)).abs().max())
             raw_err = float((got - want).abs().max())
             if case == "silence":
                 check(bool((got == -10.0).all()), "kernel C: silence is not at the clamp")
-            ms = cuda_ms(lambda i=0: mel._log_mel_cuda(waves, n_mels), 50 if n == 1 else 10) / n
-            plain_ms = cuda_ms(lambda i=0: mel._log_mel_plain(waves, n_mels), 20 if n == 1 else 5) / n
-            bound_ms, bound_by = kernel_c_bound(1, n_mels)
-            design = kernel_c_design_ops(n_mels)
-            print(f"[3e kernel C] {n_mels} mels, {case}: max|err| {err:.3e} normalized (bound"
-                  f" {BOUND_C:g}; un-normalized log10 {raw_err:.3e}) | kernel {ms:.4f} ms per"
-                  f" window, plain {plain_ms:.4f} ms | bound {bound_ms:.5f} ms ({bound_by}, the"
-                  f" function's FFT and sparse bank), kernel at {bound_ms / ms:.2%} of it | the"
-                  f" design's dense DFT and bank: {design / 1e9:.3f} GFLOP a window,"
-                  f" {design / F32_FLOPS * 1e3:.4f} ms at the f32 rate,"
-                  f" {design / ms / 1e9:.1f} TFLOP/s run")
-            check(err <= BOUND_C, f"kernel C {n_mels} mels, {case}: max|err| {err} > {BOUND_C}")
-            if case == "window":
-                out[n_mels] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            reps = 50 if n == 1 else 20
+            ms = cuda_ms(lambda i=0: mel._log_mel_cuda(waves, n_mels), reps)
+            plain_ms = cuda_ms(lambda i=0: mel._log_mel_plain(waves, n_mels), reps // 2)
+            stft_ms = cuda_ms(lambda i=0: torch.stft(
+                waves, mel.N_FFT, hop_length=mel.HOP_LENGTH, window=hann, center=True,
+                pad_mode="reflect", return_complex=True), reps)
+            timed = case in ("window", "batch of 32")
+            device_ms = (_kernel_ms(profiled_device_ms(
+                lambda i=0: mel._log_mel_cuda(waves, n_mels), 10), "log_mel_kernel")
+                if timed else float("nan"))
+            bound_ms, bound_by = kernel_c_bound(n, n_mels)
+            design = kernel_c_design_ops(n_mels) * n
+            print(f"[3e kernel C] {n_mels} mels, {case}: max|err| {err:.3e} against the plain"
+                  f" version (bound {BOUND_C:g}), {err64:.3e} against float64 (bound"
+                  f" {BOUND_C_F64:g}; the plain version's own {plain_err64:.3e}), normalized;"
+                  f" un-normalized log10 against the plain version {raw_err:.3e} | kernel"
+                  f" {ms:.4f} ms a call of {n} window(s) by CUDA events, device"
+                  f" {device_ms:.4f} ms (profiler) | plain {plain_ms:.4f} ms | torch.stft"
+                  f" {stft_ms:.4f} ms (the STFT alone, not the whole function) | bound"
+                  f" {bound_ms:.5f} ms ({bound_by}), kernel at {bound_ms / ms:.2%} of it by"
+                  f" events | the design's FFT and banded mel: {design / 1e9:.4f} GFLOP,"
+                  f" {design / F32_FLOPS * 1e3:.5f} ms at the f32 rate,"
+                  f" {design / ms / 1e9:.2f} TFLOP/s run")
+            check(err <= BOUND_C, f"kernel C {n_mels} mels, {case}: max|err| {err} against the"
+                  f" plain version > {BOUND_C} (against float64: kernel {err64}, plain"
+                  f" {plain_err64})")
+            check(err64 <= BOUND_C_F64, f"kernel C {n_mels} mels, {case}: max|err| {err64}"
+                  f" against float64 > {BOUND_C_F64}")
+            if timed:
+                out[(n_mels, n)] = {"max_abs_err": err, "max_abs_err_f64": err64, "ms": ms,
+                                    "device_ms": device_ms, "plain_ms": plain_ms,
+                                    "bound_ms": bound_ms, "bound_by": bound_by,
+                                    "library_ms": stft_ms}
+    # White noise, printed and not held to the bounds: its largest error
+    # after normalization sits in a few near-zero bins of one-bin bands (at
+    # 128 mels), where every f32 evaluation, the plain version's too, loses
+    # digits; speech-like windows keep such bins below the clamp.
+    rng = np.random.default_rng(seed + 8)
+    noise = torch.from_numpy(
+        (0.1 * rng.standard_normal((32, mel.N_SAMPLES))).astype(np.float32)).to(dev)
+    for n_mels in (80, 128):
+        got = mel._finalize(mel._log_mel_cuda(noise, n_mels)).double()
+        want = mel._finalize(mel._log_mel_plain(noise, n_mels)).double()
+        exact = mel._finalize(mel._log_mel_plain(noise, n_mels, torch.float64))
+        err64, plain_err64, err = (float((x - y).abs().max())
+                                   for x, y in ((got, exact), (want, exact), (got, want)))
+        print(f"[3e kernel C] {n_mels} mels, white noise (0.1 rms), 32 windows, printed and not"
+              f" held to the bounds: max|err| against float64: kernel {err64:.3e}, plain version"
+              f" {plain_err64:.3e}; kernel against the plain version {err:.3e}")
     return out
 
 
@@ -982,13 +1048,15 @@ def phase_slice_parity(seed: int, devices=("cuda", "cpu"), beam_size: int = 1,
     (the plain versions): greedy at the first differing token, beam 5 by
     the second device's teacher-forced rescoring. On a CUDA device the
     kernels' launches are counted: kernel A runs over the int8 cross-KV
-    only, never at the f32 widths' float one; kernel E runs at beam 5."""
+    only, never at the f32 widths' float one; kernel E runs at beam 5;
+    kernel C once per encoder batch (the batched mel)."""
     import torch
 
     from whisper_nemo_tpu_torch.engine.decode import build_suppress_mask
     from whisper_nemo_tpu_torch.engine.transcribe import WhisperEngine
     from whisper_nemo_tpu_torch.models.whisper import WhisperDims, init_whisper_params
     from whisper_nemo_tpu_torch.ops import cross_decode as cd
+    from whisper_nemo_tpu_torch.ops import mel
     from whisper_nemo_tpu_torch.ops import self_decode as sd
     from whisper_nemo_tpu_torch.text.tokenizer import WhisperTokenizer, get_suppressed_tokens
 
@@ -997,7 +1065,8 @@ def phase_slice_parity(seed: int, devices=("cuda", "cpu"), beam_size: int = 1,
     tok = WhisperTokenizer.byte_fallback(multilingual=False)
     audio = speechlike(70.0, seed)
     runs = []
-    counters = (cd.cross_attention_decode_layered, sd.self_attention_decode_ancestry_layered)
+    counters = (cd.cross_attention_decode_layered, sd.self_attention_decode_ancestry_layered,
+                mel.log_mel_raw)
     launches = "no CUDA device in this run"
     for dev in devices:
         eng = WhisperEngine("tiny.en", compute_type, device=dev, params=params, dims=dims,
@@ -1007,14 +1076,18 @@ def phase_slice_parity(seed: int, devices=("cuda", "cpu"), beam_size: int = 1,
         segs, _ = eng.transcribe_batched(audio, language="en", batch_size=2, beam_size=beam_size)
         runs.append((eng, segs))
         if dev != "cpu":
-            a, e = (fn.launches for fn in counters)
+            a, e, c = (fn.launches for fn in counters)
+            batches = len(eng.last_decode_steps)
             steps = sum(eng.last_decode_steps) * dims.n_text_layer
             check(a == (0 if compute_type in ("default", "float32") else steps),
                   f"slice parity at {compute_type}: kernel A launched {a} times for {steps} layer"
                   " steps")
             check(e == (steps if beam_size > 1 else 0), f"slice parity at {compute_type} beam"
                   f" {beam_size}: kernel E launched {e} times for {steps} layer steps")
-            launches = f"launches on {dev}: A {a}, E {e} ({steps} layer steps)"
+            check(c == batches, f"slice parity at {compute_type}: kernel C launched {c} times for"
+                  f" {batches} encoder batches")
+            launches = (f"launches on {dev}: A {a}, E {e} ({steps} layer steps), C {c} ({batches}"
+                        " batches)")
     (gpu, gsegs), (cpu, csegs) = runs
     check([(s.start, s.end) for s in gsegs] == [(s.start, s.end) for s in csegs],
           "slice parity: VAD windows differ between GPU and CPU")
@@ -1278,7 +1351,7 @@ def phase_main_path(seed: int) -> dict:
     from whisper_nemo_tpu_torch.ops import attention as at
     from whisper_nemo_tpu_torch.ops import beam_permute as bp
     from whisper_nemo_tpu_torch.ops import cross_decode as cd
-    from whisper_nemo_tpu_torch.ops import ctc
+    from whisper_nemo_tpu_torch.ops import ctc, mel
     from whisper_nemo_tpu_torch.ops import self_decode as sd
 
     t0 = time.time()
@@ -1298,7 +1371,7 @@ def phase_main_path(seed: int) -> dict:
 
     # kernel F is on no path: its counters are read to show it stays off
     counters = (cd.cross_attention_decode_layered, at.encoder_attention,
-                sd.self_attention_decode_ancestry_layered, ctc.viterbi_batch,
+                sd.self_attention_decode_ancestry_layered, ctc.viterbi_batch, mel.log_mel_raw,
                 bp.beam_permute_cache, bp.beam_permute_cache_inplace)
 
     def zero_counts():
@@ -1316,10 +1389,12 @@ def phase_main_path(seed: int) -> dict:
             runs.append((time.time() - t1, segments, info, list(eng.last_decode_steps)))
         return runs, [fn.launches for fn in counters]
 
-    def check_asr(runs, a, b, what):
+    def check_asr(runs, a, b, c, what):
         steps = [s for r in runs for s in r[3]]
         batches = sum(len(r[3]) for r in runs)
-        check(a > 0 and b > 0, f"{what}: a kernel of the main path never launched")
+        check(a > 0 and b > 0 and c > 0, f"{what}: a kernel of the main path never launched")
+        check(c == batches,
+              f"{what}: kernel C launched {c} times, expected one a batch ({batches} batches)")
         check(a == sum(steps) * L_dec,
               f"{what}: kernel A launched {a} times, expected {sum(steps)} steps x {L_dec} layers")
         check(b == batches * L_enc,
@@ -1340,16 +1415,16 @@ def phase_main_path(seed: int) -> dict:
 
     # the CLI's call: the facade's default beam 5, warm and timed
     zero_counts()
-    beam_runs, (a_beam, b_beam, e_beam, d_beam, *f_beam) = run_asr(2)
-    beam_steps, beam_batches = check_asr(beam_runs, a_beam, b_beam, "beam 5")
+    beam_runs, (a_beam, b_beam, e_beam, d_beam, c_beam, *f_beam) = run_asr(2)
+    beam_steps, beam_batches = check_asr(beam_runs, a_beam, b_beam, c_beam, "beam 5")
     check(e_beam == sum(beam_steps) * L_dec and e_beam == a_beam,
           f"beam 5: kernel E launched {e_beam} times, expected {sum(beam_steps)} steps x {L_dec}"
           f" layers, as kernel A ({a_beam})")
     check(d_beam == 0, "beam 5: kernel D launched during ASR")
     # bench.py's call: greedy, one timed request
     zero_counts()
-    greedy_runs, (a_greedy, b_greedy, e_greedy, _, *f_greedy) = run_asr(1, beam_size=1)
-    greedy_steps, greedy_batches = check_asr(greedy_runs, a_greedy, b_greedy, "greedy")
+    greedy_runs, (a_greedy, b_greedy, e_greedy, _, c_greedy, *f_greedy) = run_asr(1, beam_size=1)
+    greedy_steps, greedy_batches = check_asr(greedy_runs, a_greedy, b_greedy, c_greedy, "greedy")
     check(e_greedy == 0, f"greedy: kernel E launched {e_greedy} times")
     # stage 5 of the flow: the ASR segments' words aligned (here on the
     # synthetic transcript); the warm request records stage times
@@ -1365,6 +1440,8 @@ def phase_main_path(seed: int) -> dict:
         aligned.append((time.time() - t1, words))
     launches_b_align = at.encoder_attention.launches
     launches_d = ctc.viterbi_batch.launches
+    check(mel.log_mel_raw.launches == 0,
+          f"alignment launched kernel C {mel.log_mel_raw.launches} times")
     f_align = [bp.beam_permute_cache.launches, bp.beam_permute_cache_inplace.launches]
     launches_f = [x + y + z for x, y, z in zip(f_beam, f_greedy, f_align)]
     check(launches_f == [0, 0], f"kernel F launched {launches_f} times (out of place, in place)"
@@ -1396,17 +1473,18 @@ def phase_main_path(seed: int) -> dict:
         f" | audio {info.duration:.0f} s, after VAD {info.duration_after_vad:.1f} s | windows"
         f" {len(segs)}, decode steps per batch {st} | launches A {a_beam} and E {e_beam} (each"
         f" = {sum(beam_steps)} steps x {L_dec}), B {b_beam} (= {beam_batches} batches x"
-        f" {L_enc}) over both requests | warm request {beam_runs[0][0]:.2f} s, timed request"
-        f" {wall:.2f} s ({wall / info.duration * 3600:.1f} s per audio hour,"
+        f" {L_enc}), C {c_beam} (one a batch) over both requests | warm request"
+        f" {beam_runs[0][0]:.2f} s, timed request {wall:.2f} s"
+        f" ({wall / info.duration * 3600:.1f} s per audio hour,"
         f" {wall * 1e3 / sum(st):.2f} ms per decode step, whole request)"
     )
     wall, segs, info, st = greedy_runs[0]
     print(
         f"[6 main path] medium.en int8 b32 greedy (beam_size=1): windows {len(segs)}, decode"
         f" steps per batch {st} | launches A {a_greedy} (= {sum(greedy_steps)} steps x {L_dec}),"
-        f" B {b_greedy} (= {greedy_batches} batches x {L_enc}), E 0 | timed request {wall:.2f} s"
-        f" ({wall / info.duration * 3600:.1f} s per audio hour, {wall * 1e3 / sum(st):.2f} ms"
-        f" per decode step, whole request)"
+        f" B {b_greedy} (= {greedy_batches} batches x {L_enc}), C {c_greedy}, E 0 | timed"
+        f" request {wall:.2f} s ({wall / info.duration * 3600:.1f} s per audio hour,"
+        f" {wall * 1e3 / sum(st):.2f} ms per decode step, whole request)"
     )
     align_wall = aligned[1][0]
     print(
@@ -1414,7 +1492,7 @@ def phase_main_path(seed: int) -> dict:
         f" {aligner.dims.hidden_size} bf16, batch 8: setup {align_setup_s:.1f} s |"
         f" {len(timed_segments)} segments, {n_words} words aligned | groups (t_b, l_b): rows"
         f" per launch {groups} | launches B {launches_b_align} (= 2 x {emission_batches}"
-        f" batches x {aligner.dims.num_layers}), D {launches_d} (= 2 x {dispatched} groups)"
+        f" batches x {aligner.dims.num_layers}), D {launches_d} (= 2 x {dispatched} groups), C 0"
         f" | warm request {aligned[0][0]:.2f} s (emissions {stats['emissions_s']:.3f} s,"
         f" items {stats['items_s']:.3f} s, Viterbi {stats['viterbi_s']:.3f} s, post"
         f" {stats['post_s']:.3f} s, stages synchronised), timed request {align_wall:.2f} s"
@@ -1423,6 +1501,7 @@ def phase_main_path(seed: int) -> dict:
     print(f"[6 main path] kernel F launches over the three runs: out of place {launches_f[0]},"
           f" in place {launches_f[1]} (no path calls it)")
     return {"launches_a": a_greedy, "launches_a_beam": a_beam, "launches_f": launches_f,
+            "launches_c": c_greedy,
             "launches_b": b_beam + b_greedy + launches_b_align, "launches_d": launches_d,
             "launches_e": e_beam, "engine": eng, "model": model, "audio": audio,
             "aligner": aligner, "align_tok": align_tok, "segments": timed_segments}
@@ -1445,8 +1524,8 @@ def phase_default_main(seed: int) -> dict:
     batch_size=32) at its default beam 5, one request of 10 minutes of
     speech-like audio (one batch of windows). Kernel E runs on the f32
     cache (24 launches per beam step), kernel A never (the float
-    cross-KV), kernel B 24 per batch. Then the f32 beam step alone at
-    B·K=160 (CUDA events; torch.profiler's device time)."""
+    cross-KV), kernel B 24 per batch, kernel C one. Then the f32 beam
+    step alone at B·K=160 (CUDA events; torch.profiler's device time)."""
     import torch
 
     from whisper_nemo_tpu_torch.asr import BatchedInferencePipeline, WhisperModel
@@ -1457,6 +1536,7 @@ def phase_default_main(seed: int) -> dict:
     )
     from whisper_nemo_tpu_torch.ops import attention as at
     from whisper_nemo_tpu_torch.ops import cross_decode as cd
+    from whisper_nemo_tpu_torch.ops import mel
     from whisper_nemo_tpu_torch.ops import self_decode as sd
 
     t0 = time.time()
@@ -1469,7 +1549,7 @@ def phase_default_main(seed: int) -> dict:
     L_dec, L_enc = eng.dims.n_text_layer, eng.dims.n_audio_layer
     audio = speechlike(600.0, seed + 8)
     counters = (cd.cross_attention_decode_layered, at.encoder_attention,
-                sd.self_attention_decode_ancestry_layered)
+                sd.self_attention_decode_ancestry_layered, mel.log_mel_raw)
     for fn in counters:
         fn.launches = 0
     torch.cuda.synchronize()
@@ -1478,9 +1558,10 @@ def phase_default_main(seed: int) -> dict:
     segs = list(segs)
     torch.cuda.synchronize()
     wall = time.time() - t1
-    a, b, e = (fn.launches for fn in counters)
+    a, b, e, c = (fn.launches for fn in counters)
     steps = list(eng.last_decode_steps)
     check(len(steps) == 1, f"default width: expected one batch of windows, got {len(steps)}")
+    check(c == 1, f"default width: kernel C launched {c} times for one batch")
     check(e > 0 and e == sum(steps) * L_dec, f"default width: kernel E launched {e} times,"
           f" expected {sum(steps)} steps x {L_dec} layers")
     check(a == 0, f"default width: kernel A launched {a} times over the float cross-KV")
@@ -1493,8 +1574,8 @@ def phase_default_main(seed: int) -> dict:
     print(f"[6d default width] medium.en \"default\" (f32, float cross-KV) b32 beam 5: setup"
           f" {setup_s:.1f} s | audio {info.duration:.0f} s, after VAD"
           f" {info.duration_after_vad:.1f} s | windows {len(segs)}, decode steps {steps} |"
-          f" launches E {e} (= {sum(steps)} steps x {L_dec}, f32 cache), A {a}, B {b} | request"
-          f" {wall:.2f} s ({wall / info.duration * 3600:.1f} s per audio hour,"
+          f" launches E {e} (= {sum(steps)} steps x {L_dec}, f32 cache), A {a}, B {b}, C {c} |"
+          f" request {wall:.2f} s ({wall / info.duration * 3600:.1f} s per audio hour,"
           f" {wall * 1e3 / sum(steps):.2f} ms per decode step, whole request)")
 
     # the f32 beam step at B·K = 160 rows over the window-shared float cross-KV
@@ -1680,9 +1761,9 @@ def phase_sequential_stage_times(main: dict, seq: dict, c: dict) -> None:
     n_win = len(t["windows"])
     other_steps = t["steps"] - t["beam_steps"]
     n_decodes = sum(len(w["temperatures"]) for w in t["windows"])
-    device_s = (n_win * (c[80]["ms"] + enc_ms) + n_decodes * ckv_ms + t["beam_steps"] * beam_dev
-                + other_steps * greedy_dev) / 1e3
-    print(f"[6c stages] per window: mel (kernel C) {c[80]['ms']:.4f} ms, encoder at B=1"
+    device_s = (n_win * (c[(80, 1)]["ms"] + enc_ms) + n_decodes * ckv_ms
+                + t["beam_steps"] * beam_dev + other_steps * greedy_dev) / 1e3
+    print(f"[6c stages] per window: mel (kernel C) {c[(80, 1)]['ms']:.4f} ms, encoder at B=1"
           f" {enc_ms:.2f} ms, cross-KV projection {ckv_ms:.2f} ms a decode (CUDA events) | beam"
           f" step (B·K=5, S=384, per-row mask): {beam_ms:.3f} ms a step by CUDA events, host"
           f" enqueue {beam_enq:.3f} ms, device time {beam_dev:.3f} ms (torch.profiler) | greedy"
@@ -1718,7 +1799,9 @@ def phase_stage_times(main: dict, a: dict, e: dict) -> None:
     with torch.inference_mode():
         mels = mel.log_mel_spectrogram_batch(waves, eng.dims.n_mels)
         enc_ms = cuda_ms(lambda i=0: eng.encode_windows(mels), 3)
-        mel_ms = cuda_ms(lambda i=0: mel.log_mel_spectrogram_batch(waves, eng.dims.n_mels), 3)
+        mel_ms = cuda_ms(lambda i=0: mel.log_mel_spectrogram_batch(waves, eng.dims.n_mels), 10)
+        mel_plain_ms = cuda_ms(lambda i=0: mel._finalize(
+            mel._log_mel_plain(waves, eng.dims.n_mels)).transpose(-1, -2), 10)
         feats = eng.encode_windows(mels)
         ckv_ms = cuda_ms(lambda i=0: cross_kv_decode_layout_fused(
             eng.params, feats, eng.dims, bits=8), 3)
@@ -1739,7 +1822,8 @@ def phase_stage_times(main: dict, a: dict, e: dict) -> None:
         done_ms = (time.perf_counter() - t0) * 1e3 / 50
         greedy_prof = profiled_device_ms(lambda i=0: decode_step_stacked(
             eng.params, tok, 2 + i, cache, ckv, eng.dims, eng.dtype, return_hidden=True), 5)
-        print(f"[6b stages] b32 medium.en int8: mel {mel_ms:.2f} ms, encoder {enc_ms:.2f} ms,"
+        print(f"[6b stages] b32 medium.en int8: mel {mel_ms:.4f} ms (kernel C; the plain version"
+              f" {mel_plain_ms:.4f} ms), encoder {enc_ms:.2f} ms,"
               f" cross-KV projection+quantization {ckv_ms:.2f} ms, greedy decode step"
               f" {step_ms:.3f} ms (CUDA events); host enqueues a step in {enqueue_ms:.3f} ms,"
               f" device done {done_ms:.3f} ms after the first enqueue, per step |"
@@ -1896,7 +1980,12 @@ def main() -> int:
         # and E at its batch-1 shapes
         {"name": "log_mel_raw", "route": "cuda", "source": "whisper_nemo_tpu_torch/csrc/log_mel.cu",
          "replaces": "whisper_nemo_tpu/ops/mel.py:149",
-         "launches": seq["timed"]["launches"][0], **c[80]},
+         "launches": seq["timed"]["launches"][0], **c[(80, 1)]},
+        # the batched path's mel (6, the greedy request: one launch a batch)
+        {"name": "log_mel_raw (batched, B=32)", "route": "cuda",
+         "source": "whisper_nemo_tpu_torch/csrc/log_mel.cu",
+         "replaces": "whisper_nemo_tpu/ops/mel.py:149",
+         "launches": main_run["launches_c"], **c[(80, 32)]},
         {"name": "encoder_attention (sequential, B=1)", "route": "cuda",
          "source": "whisper_nemo_tpu_torch/csrc/encoder_attention.cu",
          "replaces": "whisper_nemo_tpu/ops/attention.py:91",
@@ -1912,8 +2001,10 @@ def main() -> int:
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    # kernels A and E also carry their profiler device time beside the events' ms
-    kernels = [{k: entry[k] for k in keys + ("device_ms",) if k in entry} for entry in kernels]
+    # kernels A, C and E also carry their profiler device time beside the events' ms, and
+    # kernel C its error against float64
+    kernels = [{k: entry[k] for k in keys + ("device_ms", "max_abs_err_f64") if k in entry}
+               for entry in kernels]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import speechlike
 from whisper_nemo_tpu_torch.ops import attention, beam_permute, cross_decode, ctc, mel, self_decode
 
 
@@ -152,6 +153,125 @@ def test_log_mel_takes_the_plain_version_on_cpu(n_mels):
     assert mel.log_mel_raw.launches == 0
 
 
+@pytest.mark.parametrize("n_mels", [1, 40, 80, 128, 256, 1024])
+def test_log_mel_kernel_tables(n_mels):
+    """Kernel C's host tables: every nonzero of the mel bank lies in its
+    band's [lo, hi), every weight outside it is 0, the band weights are
+    the bank's own, and the window and twiddles are float64 cos and sin
+    rounded to f32."""
+    fb = mel.mel_filter_bank(mel.N_FFT // 2 + 1, n_mels)  # [201, n_mels]
+    bands, weights = mel._mel_bands(n_mels)
+    assert bands.dtype == np.int32 and bands.shape == (n_mels, 2)
+    assert weights.dtype == np.float32 and weights.shape[0] == n_mels
+    lo, hi = bands[:, 0], bands[:, 1]
+    assert bool(((0 <= lo) & (lo <= hi) & (hi <= fb.shape[0])).all())
+    assert int((hi - lo).max()) <= weights.shape[1]
+    k = np.arange(fb.shape[0])[:, None]
+    inside = (k >= lo[None]) & (k < hi[None])
+    assert not fb[~inside].any()
+    assert bool((fb[lo, np.arange(n_mels)][hi > lo] != 0).all())  # runs start on a nonzero
+    assert bool((fb[hi - 1, np.arange(n_mels)][hi > lo] != 0).all())  # and end on one
+    for m in range(n_mels):
+        np.testing.assert_array_equal(weights[m, : hi[m] - lo[m]], fb[lo[m] : hi[m], m])
+        assert not weights[m, hi[m] - lo[m] :].any()
+    window, twiddles = mel._fft_tables()
+    angle = 2.0 * np.pi * np.arange(mel.N_FFT, dtype=np.float64) / mel.N_FFT
+    assert window.dtype == twiddles.dtype == np.float32
+    np.testing.assert_array_equal(window, (0.5 - 0.5 * np.cos(angle)).astype(np.float32))
+    np.testing.assert_array_equal(twiddles[:, 0], np.cos(angle).astype(np.float32))
+    np.testing.assert_array_equal(twiddles[:, 1], (-np.sin(angle)).astype(np.float32))
+
+
+# the radix-8 and radix-5 butterflies' constants, as csrc/log_mel.cu writes them
+_R2 = np.float32(np.sqrt(0.5))
+_C1, _C2 = np.float32(np.cos(2 * np.pi / 5)), np.float32(np.cos(4 * np.pi / 5))
+_S1, _S2 = np.float32(np.sin(2 * np.pi / 5)), np.float32(np.sin(4 * np.pi / 5))
+
+
+def _dft4(u):
+    s0, d0 = u[..., 0] + u[..., 2], u[..., 0] - u[..., 2]
+    s1, d1 = u[..., 1] + u[..., 3], u[..., 1] - u[..., 3]
+    return np.stack([s0 + s1, d0 - 1j * d1, s0 - s1, d0 + 1j * d1], -1).astype(np.complex64)
+
+
+def _dft8(v):
+    """The kernel's radix-8 butterfly over the last axis: even outputs
+    from the sums, odd ones from the differences times W8^r."""
+    a, t = v[..., :4] + v[..., 4:], v[..., :4] - v[..., 4:]
+    b = np.stack([t[..., 0], _R2 * (t[..., 1] * (1 - 1j)), t[..., 2] * -1j,
+                  _R2 * (t[..., 3] * (-1 - 1j))], -1).astype(np.complex64)
+    out = np.empty_like(v)
+    out[..., 0::2], out[..., 1::2] = _dft4(a), _dft4(b)
+    return out
+
+
+def _dft5(v):
+    """The kernel's radix-5 butterfly over the last axis."""
+    t1, t2 = v[..., 1] + v[..., 4], v[..., 2] + v[..., 3]
+    t3, t4 = v[..., 1] - v[..., 4], v[..., 2] - v[..., 3]
+    a1, a2 = v[..., 0] + _C1 * t1 + _C2 * t2, v[..., 0] + _C2 * t1 + _C1 * t2
+    b1, b2 = _S1 * t3 + _S2 * t4, _S2 * t3 - _S1 * t4
+    return np.stack([v[..., 0] + t1 + t2, a1 - 1j * b1, a2 - 1j * b2, a2 + 1j * b2, a1 + 1j * b1],
+                    -1).astype(np.complex64)
+
+
+def _log_mel_fft_model(waves, n_mels):
+    """A numpy f32 model of kernel C's factorization on ``[B, T]``
+    waveforms: the 200-point FFT as 8 x 25 (thread n1's 25-point DFT as
+    5 x 5, its twiddles W200^{n1 k2}, the 8-point DFTs over n1), the index
+    maps, twiddle table and real split of csrc/log_mel.cu, then the banded
+    mel and log10."""
+    window, tw = mel._fft_tables()
+    tw = (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
+    bands, weights = mel._mel_bands(n_mels)
+    n_frames = waves.shape[1] // mel.HOP_LENGTH
+    padded = np.pad(waves, ((0, 0), (mel.N_FFT // 2, mel.N_FFT // 2)), mode="reflect")
+    xw = padded[:, mel.HOP_LENGTH * np.arange(n_frames)[:, None] + np.arange(mel.N_FFT)] * window
+    z = (xw[..., 0::2] + 1j * xw[..., 1::2]).astype(np.complex64)  # [B, F, 200]
+    # thread n1 takes u[n2] = z[n1 + 8 n2]; n2 = 5a + b: a DFT over a for
+    # each b, times W25^{bc} (entry 16 b c), then a DFT over b for each c
+    n1, n2 = np.arange(8)[:, None], np.arange(25)[None]
+    u = z[..., n1 + 8 * n2].reshape(z.shape[:-1] + (8, 5, 5))  # [..., n1, a, b]
+    b, c = np.arange(5)[:, None], np.arange(5)[None]
+    v = _dft5(np.swapaxes(u, -1, -2)) * tw[16 * b * c]  # [..., n1, b, c]
+    y = _dft5(np.swapaxes(v, -1, -2))  # [..., n1, c, d]: Y[c + 5 d]
+    y = np.swapaxes(y, -1, -2).reshape(y.shape[:-2] + (25,))  # [..., n1, k2]
+    y = y * tw[2 * n1 * np.arange(25)[None]]  # W200^{n1 k2} (entry 2 n1 k2)
+    # the 8-point DFT over n1 for each k2: Z[25 k1 + k2]
+    zz = np.swapaxes(_dft8(np.swapaxes(y, -1, -2)), -1, -2).reshape(z.shape)
+    # the real split, bins k and 200 - k for k = 0..100
+    k = np.arange(101)
+    zk, zr = zz[..., k], np.conj(zz[..., (200 - k) % 200])
+    e, o = np.float32(0.5) * (zk + zr), np.float32(0.5) * (zk - zr)
+    t = tw[k] * o
+    xa, xb = e - 1j * t, e + 1j * t
+    power = np.empty(zz.shape[:-1] + (201,), np.float32)
+    power[..., 200 - k] = xb.real**2 + xb.imag**2
+    power[..., k] = xa.real**2 + xa.imag**2
+    out = np.zeros(power.shape[:-1] + (n_mels,), np.float32)
+    for m, (lo, hi) in enumerate(bands):
+        out[..., m] = power[..., lo:hi] @ weights[m, : hi - lo]
+    return torch.log10(torch.clamp(torch.from_numpy(out), min=1e-10))
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_log_mel_fft_model_matches_plain_and_float64(n_mels):
+    """The numpy model of kernel C's FFT (8 x 25, the 25-point DFTs as
+    5 x 5, and the real split) against the plain version within 1e-4 and against the same
+    formula in float64 within 5e-5, after whisper's normalization: where
+    a sign or an index of the factorization goes wrong without the card.
+    Silence stays at the clamp."""
+    waves = _mel_windows("cpu")
+    got = _log_mel_fft_model(waves.numpy(), n_mels)
+    want = mel._log_mel_plain(waves, n_mels)
+    exact = mel._log_mel_plain(waves, n_mels, torch.float64)
+    assert got.shape == want.shape == exact.shape == (3, 3000, n_mels)
+    assert bool((got[2] == -10.0).all())
+    torch.testing.assert_close(mel._finalize(got), mel._finalize(want), atol=1e-4, rtol=0)
+    torch.testing.assert_close(mel._finalize(got.double()), mel._finalize(exact), atol=5e-5,
+                               rtol=0)
+
+
 def test_wrappers_raise_off_the_cpu_without_cuda():
     """A tensor that is neither on the CPU nor on a CUDA device (here
     PyTorch's shape-only "meta" device) is refused before any build or
@@ -178,6 +298,8 @@ def test_wrappers_raise_off_the_cpu_without_cuda():
         beam_permute.beam_permute_cache_inplace(k, v, idx.reshape(3, 5), 5)
     with pytest.raises(ValueError, match="CUDA device"):
         mel.log_mel_raw(torch.empty((1, 480000), device=meta))
+    with pytest.raises(ValueError, match="CUDA device"):
+        mel.log_mel_spectrogram_batch(torch.empty((2, 480000), device=meta))
 
 
 @pytest.mark.cuda
@@ -463,15 +585,27 @@ def test_beam_permute_kernel_matches_plain_on_cuda(cuda_device, dtype, shape):
     assert got[0] is k and torch.equal(k, want[0]) and torch.equal(v, want[1])
 
 
+def _log_mel_errors(waves, n_mels, got):
+    """max|err| of kernel C's ``got`` after whisper's normalization,
+    against the plain version and against the same formula in float64."""
+    want = mel._log_mel_plain(waves, n_mels)
+    exact = mel._log_mel_plain(waves, n_mels, torch.float64)
+    err = float((mel._finalize(got) - mel._finalize(want)).abs().max())
+    err64 = float((mel._finalize(got.double()) - mel._finalize(exact)).abs().max())
+    return err, err64
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_mels", [80, 128])
 def test_log_mel_kernel_matches_plain_on_cuda(cuda_device, n_mels):
     """Kernel C against its plain version on the card, TF32 off: a 30 s
     window, a 7.3 s one zero-padded to 30 s and silence, as one batch and
-    one window alone, at 80 and 128 mel bands. After whisper's
-    normalization (values of order 1) within 1e-4: the same f32 products
-    summed in another order. Silence is -10 exactly (the 1e-10 clamp).
-    Wrong types and shapes raise."""
+    one window alone, and a batch of 32 speech-like windows through the
+    batched mel (one launch), at 80 and 128 mel bands. After whisper's normalization
+    (values of order 1) within 1e-4 of the plain version (an f32 FFT
+    against f32 dense products, each with its own rounding) and within
+    5e-5 of the same formula in float64. Silence is -10 exactly (the
+    1e-10 clamp). Wrong types and shapes raise."""
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -480,17 +614,60 @@ def test_log_mel_kernel_matches_plain_on_cuda(cuda_device, n_mels):
         got = mel.log_mel_raw(waves, n_mels)
         want = mel._log_mel_plain(waves, n_mels)
         one = mel.log_mel_spectrogram(waves[1], n_mels)
+        # phase 3e's batch of 32 windows of speech-like audio, the last silent
+        batch = speechlike(32 * 30.0, 7).reshape(32, mel.N_SAMPLES)
+        batch = torch.from_numpy(batch).to(cuda_device)
+        batch[-1] = 0.0
+        batched = mel.log_mel_spectrogram_batch(batch, n_mels)
+        batch_want = mel._finalize(mel._log_mel_plain(batch, n_mels)).transpose(-1, -2)
+        errs = _log_mel_errors(waves, n_mels, got)
+        batch_raw = mel.log_mel_raw(batch, n_mels)
+        batch_errs = _log_mel_errors(batch, n_mels, batch_raw)
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    assert mel.log_mel_raw.launches == launches + 2
+    assert mel.log_mel_raw.launches == launches + 4
     assert got.shape == want.shape == (3, 3000, n_mels)
-    assert bool((got[2] == -10.0).all())
+    assert bool((got[2] == -10.0).all()) and bool((batch_raw[-1] == -10.0).all())
     torch.testing.assert_close(mel._finalize(got), mel._finalize(want), atol=1e-4, rtol=0)
     torch.testing.assert_close(one, mel._finalize(want[1:2])[0].T, atol=1e-4, rtol=0)
+    assert batched.shape == (32, n_mels, 3000)
+    torch.testing.assert_close(batched, batch_want, atol=1e-4, rtol=0)
+    for err, err64 in (errs, batch_errs):
+        assert err <= 1e-4 and err64 <= 5e-5, (err, err64)
     with pytest.raises(TypeError, match="f32"):
         mel.log_mel_raw(waves.double(), n_mels)
     with pytest.raises(ValueError, match="contiguous"):
         mel.log_mel_raw(waves[:, ::2], n_mels)
     with pytest.raises(ValueError, match="reflect"):
         mel.log_mel_raw(waves[:, :100].contiguous(), n_mels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n_mels", [(480_100, 80), (201, 80), (16_000, 80), (16_000, 128),
+                                      (mel.N_SAMPLES, 1), (mel.N_SAMPLES, 1024)])
+def test_log_mel_kernel_shapes_on_cuda(cuda_device, t, n_mels):
+    """Kernel C at other lengths and widths, TF32 off: T not a multiple
+    of 160, T = 201 (one frame, the reflect padding's least), one second,
+    one band and 1024 bands (most of them without a nonzero bin), two
+    waveforms and a silent third. Within 1e-4 of the plain version and
+    5e-5 of float64 after whisper's normalization; silence is -10."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rng = np.random.default_rng(t + n_mels)
+        waves = np.zeros((3, t), np.float32)
+        tone = np.sin(2 * np.pi * 440 * np.arange(t) / mel.SAMPLE_RATE)
+        waves[0] = 0.1 * rng.standard_normal(t) + 0.3 * tone
+        waves[1] = 0.02 * rng.standard_normal(t)
+        waves = torch.from_numpy(waves).to(cuda_device)
+        launches = mel.log_mel_raw.launches
+        got = mel.log_mel_raw(waves, n_mels)
+        err, err64 = _log_mel_errors(waves, n_mels, got)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert mel.log_mel_raw.launches == launches + 1
+    assert got.shape == (3, t // mel.HOP_LENGTH, n_mels)
+    assert bool(torch.isfinite(got).all()) and bool((got[2] == -10.0).all())
+    assert err <= 1e-4 and err64 <= 5e-5, (err, err64)

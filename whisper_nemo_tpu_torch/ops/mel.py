@@ -1,27 +1,26 @@
 """Whisper log-mel front end in PyTorch.
 
-Counterpart of ``whisper_nemo_tpu/ops/mel.py``: the windowed DFT and the
-mel filter bank as two matrix products with an elementwise square in
-between, then whisper's dynamic-range compression (n_fft 400, hop 160,
-periodic Hann, slaney mel). The batched form is plain tensor work, as it
-was XLA work in the JAX package.
+Counterpart of ``whisper_nemo_tpu/ops/mel.py``: a Hann-windowed spectrum
+of 400-sample frames at hop 160, the power, the slaney mel bank, then
+whisper's dynamic-range compression. The JAX package computes it as two
+matrix products with an elementwise square in between; the plain
+version here, ``_log_mel_plain``, does the same: it is the CPU path and
+the oracle of kernel C.
 
 Kernel C (``csrc/log_mel.cu``) replaces the TPU kernel
-``whisper_nemo_tpu/ops/mel.py:_log_mel_pallas``, which the single-window
-:func:`log_mel_spectrogram` runs (the sequential path's window, language
-detection). The function needs little: a 400-point real FFT a frame and
-a bank that touches each bin at most twice, so it is bound by its bytes
-(the waveform in and the mel out, 2.9 MB a 30 s window at 80 mels). This
-kernel runs the DFT as two dense f32 products instead (1.06 GFLOP a
-window), with TF32 off, as the JAX reference on the CPU is full f32; an
-FFT is work for later. One CTA per tile of 32 frames reads the frames
-straight from the waveform, reflect padding by index, so the ``[3000,
-400]`` frame matrix is never built; the cosine and sine bases stream through shared
-memory in chunks of 8 rows, ``re`` and ``im`` accumulate in registers
-with f32 FMAs, and the power spectrum goes to shared memory for the mel
-product and ``log10``. ``_log_mel_plain`` is its plain version: the CPU
-path and the kernel's oracle. ``_finalize`` stays plain torch, as it is
-XLA outside the Pallas call in the JAX package.
+``whisper_nemo_tpu/ops/mel.py:_log_mel_pallas``. On a CUDA tensor both
+forms run it: the single-window :func:`log_mel_spectrogram` (the
+sequential path's window, language detection) and the batched
+:func:`log_mel_spectrogram_batch` (the batched path's windows), which the
+JAX package runs as XLA products. The function needs little: a 400-point
+real FFT a frame and a bank that touches each bin at most twice, so it
+is bound by its bytes (the waveform in and the mel out, 2.9 MB a 30 s
+window at 80 mels). The kernel runs that FFT as a 200-point complex FFT
+and a real split, the 200 points as 8 x 25 on a team of 8 threads a
+frame (each thread's 25-point DFT in registers), with the window and
+twiddles from :func:`_fft_tables`, then sums each band's nonzero run of
+the bank only (:func:`_mel_bands`). ``_finalize`` stays plain torch,
+as it is XLA outside the Pallas call in the JAX package.
 """
 
 from __future__ import annotations
@@ -89,18 +88,18 @@ def mel_filter_bank(
 
 
 @functools.lru_cache(maxsize=4)
-def _dft_mel_constants(n_fft: int, n_mels: int):
+def _dft_mel_constants(n_fft: int, n_mels: int, dtype=np.float32):
     """Hann-windowed DFT matrices C, S ``[n_fft, n_freqs]`` and the mel
-    bank ``[n_freqs, n_mels]`` as numpy constants:
-    C[j, k] = w[j]·cos(2πjk/n), S[j, k] = -w[j]·sin(2πjk/n)."""
+    bank ``[n_freqs, n_mels]`` as numpy constants of ``dtype``, computed
+    in float64: C[j, k] = w[j]·cos(2πjk/n), S[j, k] = -w[j]·sin(2πjk/n)."""
     n_freqs = n_fft // 2 + 1
     j = np.arange(n_fft)[:, None]
     k = np.arange(n_freqs)[None, :]
     angle = 2.0 * np.pi * j * k / n_fft
     window = 0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(n_fft) / n_fft))
-    cos_m = (window[:, None] * np.cos(angle)).astype(np.float32)
-    sin_m = (window[:, None] * -np.sin(angle)).astype(np.float32)
-    return cos_m, sin_m, mel_filter_bank(n_freqs, n_mels)
+    cos_m = (window[:, None] * np.cos(angle)).astype(dtype)
+    sin_m = (window[:, None] * -np.sin(angle)).astype(dtype)
+    return cos_m, sin_m, mel_filter_bank(n_freqs, n_mels).astype(dtype)
 
 
 def _finalize(logmel: torch.Tensor) -> torch.Tensor:
@@ -111,20 +110,73 @@ def _finalize(logmel: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=8)
-def _device_constants(device: torch.device, n_mels: int):
-    """C, S and the mel bank as contiguous f32 tensors on ``device``,
-    made once (the numpy mel bank is a transpose)."""
+def _device_constants(device: torch.device, n_mels: int, dtype=torch.float32):
+    """C, S and the mel bank as contiguous tensors of ``dtype`` (f32 or
+    float64) on ``device``, made once (the numpy mel bank is a
+    transpose)."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     return tuple(
-        torch.from_numpy(np.ascontiguousarray(c)).to(device) for c in _dft_mel_constants(N_FFT, n_mels)
+        torch.from_numpy(np.ascontiguousarray(c)).to(device)
+        for c in _dft_mel_constants(N_FFT, n_mels, np_dtype)
     )
 
 
-def _log_mel_plain(waveforms: torch.Tensor, n_mels: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=1)
+def _fft_tables():
+    """Kernel C's periodic Hann window ``[n_fft]`` and twiddles
+    ``[n_fft, 2]`` = (cos, -sin)(2πk/n_fft), computed in float64 and
+    rounded once to f32. Every twiddle the kernel takes is one of these,
+    with W_n = exp(-2πi/n): W_25^(bc) inside its 25-point DFTs is entry
+    16bc, W_200^(nk) between the 25- and the 8-point DFTs entry 2nk, the
+    real split's W_400^k entry k."""
+    k = np.arange(N_FFT, dtype=np.float64)
+    angle = 2.0 * np.pi * k / N_FFT
+    window = (0.5 * (1.0 - np.cos(angle))).astype(np.float32)
+    twiddles = np.stack([np.cos(angle), -np.sin(angle)], axis=-1).astype(np.float32)
+    return window, twiddles
+
+
+@functools.lru_cache(maxsize=8)
+def _mel_bands(n_mels: int):
+    """The mel bank by its nonzero runs: ``bands`` int32 ``[n_mels, 2]``,
+    band m's first nonzero bin ``lo`` and its end ``hi`` (``lo = hi = 0``
+    for a band with none), and ``weights`` f32 ``[n_mels, width]``, band
+    m's run ``fb[lo:hi, m]`` from column 0, zeros after it (``width`` the
+    longest run, at least 1). A slaney band is a triangle, so its
+    nonzeros are one run and the weights are the bank's own."""
+    fb = mel_filter_bank(N_FFT // 2 + 1, n_mels).T  # [n_mels, n_freqs]
+    nonzero = fb != 0
+    has = nonzero.any(axis=1)
+    lo = np.where(has, nonzero.argmax(axis=1), 0)
+    hi = np.where(has, fb.shape[1] - nonzero[:, ::-1].argmax(axis=1), 0)
+    weights = np.zeros((n_mels, max(1, int((hi - lo).max()))), np.float32)
+    for m in range(n_mels):
+        weights[m, : hi[m] - lo[m]] = fb[m, lo[m] : hi[m]]
+    return np.stack([lo, hi], axis=1).astype(np.int32), weights
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_constants(device: torch.device, n_mels: int):
+    """Kernel C's tables on ``device``, made once: the window, the
+    twiddles, the band table and the band weights transposed to
+    ``[width, n_mels]`` (a warp's lanes, on neighbouring bands, then read
+    neighbouring weights)."""
+    bands, weights = _mel_bands(n_mels)
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(c)).to(device)
+        for c in (*_fft_tables(), bands, weights.T)
+    )
+
+
+def _log_mel_plain(waveforms: torch.Tensor, n_mels: int, dtype=torch.float32) -> torch.Tensor:
     """``[B, T]`` waveforms -> un-normalized ``log10(max(mel, 1e-10))``
     ``[B, T // hop, n_mels]`` f32: reflect-pad by ``n_fft / 2``, frames at
-    hop 160, ``frames·C``, ``frames·S``, ``re² + im²``, ``· fb``."""
-    cos_m, sin_m, fb = _device_constants(waveforms.device, n_mels)
-    w = waveforms.float()
+    hop 160, ``frames·C``, ``frames·S``, ``re² + im²``, ``· fb``. With
+    ``dtype=torch.float64`` the same formula in float64, over bases
+    computed in float64 and the bank's f32 weights: a near-exact
+    reference for the checks (its result is float64)."""
+    cos_m, sin_m, fb = _device_constants(waveforms.device, n_mels, dtype)
+    w = waveforms.to(dtype)
     n_frames = w.shape[-1] // HOP_LENGTH
     padded = torch.nn.functional.pad(
         w[:, None], (N_FFT // 2, N_FFT // 2), mode="reflect"
@@ -139,7 +191,7 @@ def _log_mel_plain(waveforms: torch.Tensor, n_mels: int) -> torch.Tensor:
 @functools.lru_cache(maxsize=1)
 def _kernel():
     fn = _build.load("log_mel").wnt_log_mel
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -160,13 +212,13 @@ def _log_mel_cuda(waveforms: torch.Tensor, n_mels: int) -> torch.Tensor:
         )
     if not 0 < n_mels <= 1024:
         raise ValueError(f"kernel C takes 1 to 1024 mel bands, got {n_mels}")
-    cos_m, sin_m, fb = _device_constants(waveforms.device, n_mels)
+    window, twiddles, bands, weights = _kernel_constants(waveforms.device, n_mels)
     b, t = waveforms.shape
     n_frames = t // HOP_LENGTH
     out = torch.empty((b, n_frames, n_mels), dtype=torch.float32, device=waveforms.device)
     rc = _kernel()(
-        waveforms.data_ptr(), cos_m.data_ptr(), sin_m.data_ptr(), fb.data_ptr(), out.data_ptr(),
-        b, t, n_frames, n_mels, _build.stream(waveforms.device),
+        waveforms.data_ptr(), window.data_ptr(), twiddles.data_ptr(), bands.data_ptr(),
+        weights.data_ptr(), out.data_ptr(), b, t, n_frames, n_mels, _build.stream(waveforms.device),
     )
     _build.check(rc, "log_mel")
     log_mel_raw.launches += 1
@@ -198,6 +250,7 @@ def log_mel_spectrogram_batch(
     waveforms: torch.Tensor, n_mels: int = 80
 ) -> torch.Tensor:
     """``[B, T]`` equal-length waveforms -> ``[B, n_mels, T // hop]`` f32
-    log-mel, normalized per window, on the waveforms' device (plain
-    tensor work on every device)."""
-    return _finalize(_log_mel_plain(waveforms, n_mels)).transpose(-1, -2)
+    log-mel, normalized per window, on the waveforms' device: one launch
+    of kernel C on a CUDA tensor, the plain version on a CPU tensor."""
+    logmel = log_mel_raw(waveforms.float().contiguous(), n_mels)
+    return _finalize(logmel).transpose(-1, -2)
