@@ -57,6 +57,16 @@ Phases, one line each:
      the CLI's --device auto), greedy and at beam 5, and at "float16"
      (the CLI's --device cuda), greedy; kernel E's launches counted at
      beam 5 and kernel A's held at 0 over the float cross-KV;
+  5e. diarization parity: NeuralDiarizer at small widths (energy VAD,
+     TitaNet small, MSDD, a seeded tree saved to a temporary
+     $WNT_MODEL_DIR) on the GPU against the CPU, eight audios of 60 s
+     of three voices at the telephonic preset: embeddings within 1e-4;
+     dense labels equal wherever the eigengap determines them (on at
+     least one audio), elsewhere the eigenvectors checked as
+     eigenvectors; long-form (chunks of 100) partitions equal on every
+     audio and Nyström (threshold lowered to 128) partitions on at least
+     half; MSDD's mean sigmoids within 1e-5 and turns equal on an audio
+     with the dense gap;
   6. the main path, as the CLI flow runs it: WhisperModel("medium.en",
      compute_type="int8") and BatchedInferencePipeline.transcribe(
      batch_size=32) at its default beam 5 on two requests of 20 minutes
@@ -83,22 +93,33 @@ Phases, one line each:
      kernel E's launches checked against the steps, kernel C's at one
      (the batch's mel) and kernel A's at 0;
      then the f32 beam step's device time;
+  6e. the diarization main path at full width, bench.py's call:
+     NeuralDiarizer(create_config(tmp, "telephonic"),
+     force_large_models=True) (TitaNet-large, the full MarbleNet forward,
+     the telephonic MSDD; no kernel of the port lies on it), a warm
+     request of 2 minutes of four voices, then 15, 30 and 60 minutes with
+     num_speakers=4, which take the dense eigh, the Nyström and the
+     long-form paths (asserted); per request its counts, wall time, stage
+     times and peak device memory;
   7. the card's name and power limit, the kernels' JSON line, and last
      {"ok": true, "device": {...}}.
 Any phase that fails raises, and the script exits non-zero without the
 last line. Weights are random from --seed unless $WNT_MODEL_DIR holds
-medium.en.npz and ctc_aligner.npz.
+medium.en.npz, ctc_aligner.npz and (for 6e) the diarization checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import ctypes.util
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -176,6 +197,48 @@ def speechlike(seconds: float, seed: int) -> np.ndarray:
         audio[t : t + m] += burst.astype(np.float32)
         t += m + int(rng.uniform(0.3, 1.5) * SR)
     return audio
+
+
+# (pitch Hz, formant Hz) of the synthetic voices of the diarization phases
+VOICES = ((110.0, 500.0), (190.0, 1200.0), (300.0, 2500.0), (150.0, 1800.0))
+
+
+def voices(seconds: float, seed: int, n_speakers: int = 3) -> np.ndarray:
+    """Seeded turns of 1.5-4 s by ``n_speakers`` voices taking turns in
+    rotation, with gaps of 0.2-0.8 s. A voice is its pitch's harmonics
+    shaped by a formant band, under a 3 Hz envelope, plus noise."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * SR)
+    audio = (rng.standard_normal(n) * 1e-4).astype(np.float32)
+    ph = np.arange(4 * SR) / SR
+    tones = []
+    for pitch, formant in VOICES[:n_speakers]:
+        wave = sum(np.sin(2 * np.pi * h * pitch * ph) * np.exp(-((h * pitch - formant) / 600.0) ** 2)
+                   for h in range(1, 20))
+        tones.append((wave / np.abs(wave).max() * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * ph)))
+                     .astype(np.float32))
+    t0, turn = int(0.3 * SR), 0
+    while t0 < n:
+        m = min(int(rng.uniform(1.5, 4.0) * SR), n - t0)
+        noise = rng.standard_normal(m).astype(np.float32)
+        audio[t0: t0 + m] += 0.3 * (tones[turn % n_speakers][:m] + 0.05 * noise)
+        t0 += m + int(rng.uniform(0.2, 0.8) * SR)
+        turn += 1
+    return audio
+
+
+@contextlib.contextmanager
+def model_dir(path: str):
+    """$WNT_MODEL_DIR set to ``path`` within the block."""
+    saved = os.environ.get("WNT_MODEL_DIR")
+    os.environ["WNT_MODEL_DIR"] = path
+    try:
+        yield path
+    finally:
+        if saved is None:
+            del os.environ["WNT_MODEL_DIR"]
+        else:
+            os.environ["WNT_MODEL_DIR"] = saved
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1913,6 +1976,288 @@ def phase_align_stage_times(main: dict, d_case_a: dict) -> None:
           f" group of 48), paths to host and words {stats['post_s'] * 1e3:.1f} ms")
 
 
+DIAR_EMB_TOL = 1e-4  # TitaNet embeddings, GPU against CPU (f32, TF32 off)
+DIAR_MSDD_TOL = 1e-5  # MSDD mean sigmoids on the same embeddings
+DIAR_GAP = 1e-3  # dense eigengap at or below which the k eigenvectors are not determined
+DIAR_EIG_TOL = 1e-3  # there, |L·V − V·Λ| and the eigenvalues' difference between devices
+DIAR_AUDIOS = 8  # phase 5e's audios
+
+
+def same_partition(a: np.ndarray, b: np.ndarray) -> bool:
+    """Equal labels up to relabeling."""
+    pairs = set(zip(a.tolist(), b.tolist()))
+    return len(pairs) == len(set(a.tolist())) == len(set(b.tolist()))
+
+
+def phase_diar_parity(seed: int, devices=("cuda", "cpu")) -> None:
+    """5e: the diarizer at small widths (energy VAD, TitaNet small, MSDD)
+    on ``devices[0]`` against the same on ``devices[1]``, from one seeded
+    param tree saved to a temporary $WNT_MODEL_DIR, at the telephonic
+    preset, over DIAR_AUDIOS audios of 60 s of three voices (seeds
+    ``seed + 21`` on): speech regions equal; every scale's embeddings
+    within DIAR_EMB_TOL; then the two devices' labels on each clustering
+    path. Dense: equal where the Laplacian's k-th and (k + 1)-th smallest
+    eigenvalues are more than DIAR_GAP apart on both devices. Where they
+    are not, the k eigenvectors are any basis of a larger eigenspace,
+    which cuSOLVER and LAPACK pick differently: there the neighbour counts
+    must be equal and each device's k vectors eigenvectors of its
+    Laplacian, with its k + 1 lowest eigenvalues those of the other
+    device, within DIAR_EIG_TOL. With random weights about half the audios
+    have the gap; at least one must. Long-form (chunks of 100): equal up
+    to relabeling on every audio (only its chunks' k-means runs on the
+    device; the reclustering of their means is the host's on both).
+    Nyström (threshold lowered to 128, 64 anchors): equal up to relabeling
+    on at least half the audios. At this size many segments have no
+    anchor among their neighbours and the embedding's top eigenvalues lie
+    close together, so its k-means moves with rounding whatever the gap
+    (a perturbation of the affinity at 1e-6 on the CPU alone moves it at
+    times). The shares are printed. On the first audio with the dense
+    gap: MSDD's mean sigmoids on the same embeddings within DIAR_MSDD_TOL
+    and the turns of diarize_waveform equal."""
+    import torch
+
+    from whisper_nemo_tpu_torch.config import create_config
+    from whisper_nemo_tpu_torch.diarize import NeuralDiarizer
+    from whisper_nemo_tpu_torch.diarize import clustering as cl
+    from whisper_nemo_tpu_torch.diarize.pipeline import _TITANET_SMALL
+    from whisper_nemo_tpu_torch.diarize.segments import multiscale_segmentation
+    from whisper_nemo_tpu_torch.engine.checkpoint import save_params
+    from whisper_nemo_tpu_torch.engine.precision import full_f32
+    from whisper_nemo_tpu_torch.models import msdd, titanet
+
+    k = 3
+    with tempfile.TemporaryDirectory() as tmp, model_dir(tmp), full_f32(), torch.inference_mode():
+        g = torch.Generator().manual_seed(seed + 22)
+        save_params(os.path.join(tmp, "titanet_large.npz"),
+                    titanet.init_titanet_params(_TITANET_SMALL, "cpu", g))
+        save_params(os.path.join(tmp, "diar_msdd_telephonic.npz"),
+                    msdd.init_msdd_params(msdd.MsddDims(), "cpu", g))
+        cfg = create_config(tmp, "telephonic")
+        diars = [NeuralDiarizer(cfg, device=dev, seed=seed) for dev in devices]
+        for d in diars:
+            d.spk_dims = _TITANET_SMALL  # the saved tree's widths
+            check(d.msdd_params is not None and d.vad_params is None, "5e: the saved trees")
+        emb_cfg = cfg.diarizer.speaker_embeddings.parameters
+        weights = np.asarray(emb_cfg.multiscale_weights, np.float64)
+
+        def labels(path, mapped, **clustering):
+            """[(labels, stats)] of each device on ``path``."""
+            params = cfg.diarizer.clustering.parameters
+            saved = {name: getattr(params, name) for name in clustering}
+            for name, v in clustering.items():
+                setattr(params, name, v)
+            try:
+                out = []
+                for d, embs in zip(diars, mapped):
+                    stats = {}
+                    out.append((d._cluster_labels([e.to(d.device) for e in embs], k, stats=stats),
+                                stats))
+                    check(stats["path"] == path, f"5e: took the {stats['path']} path, not {path}")
+                return out
+            finally:
+                for name, v in saved.items():
+                    setattr(params, name, v)
+
+        def eigenspace(d, embs, p):
+            """(the k + 1 lowest eigenvalues, max|L·V − V·Λ| of the k lowest
+            eigenvectors) of the dense path's Laplacian on d's device, by
+            the calls of spectral_cluster_device."""
+            affinity = cl.multiscale_affinity(torch.stack([e.to(d.device) for e in embs]),
+                                              weights / weights.sum())
+            binarized = cl._binarize_threshold(affinity, p)
+            lap = torch.diag_embed(binarized.sum(dim=1)) - binarized
+            evals, evecs = torch.linalg.eigh(lap)
+            v = evecs[:, :k]
+            return evals[: k + 1].cpu().numpy(), float((lap @ v - v * evals[:k]).abs().max())
+
+        emb_err, eig_err, first = 0.0, 0.0, None
+        held = {"dense": 0, "nystrom": 0}
+        n_base = []
+        for i in range(DIAR_AUDIOS):
+            audio = voices(60.0, seed + 21 + i, 3)
+            waves = [torch.from_numpy(audio).to(d.device) for d in diars]
+            regions = [d._speech_regions(audio, w) for d, w in zip(diars, waves)]
+            check(regions[0] == regions[1], f"5e: the speech regions differ (audio {i})")
+            scales = multiscale_segmentation(regions[1], emb_cfg.window_length_in_sec,
+                                             emb_cfg.shift_length_in_sec)
+            n_base.append(len(scales[-1]))
+            mapped = [[e.cpu() for e in d._mapped_embeddings(w, scales)]
+                      for d, w in zip(diars, waves)]
+            emb_err = max(emb_err, *(float((a - b).abs().max()) for a, b in zip(*mapped)))
+            check(emb_err <= DIAR_EMB_TOL, f"5e: embeddings differ by {emb_err:.2e} > {DIAR_EMB_TOL}")
+            runs = {"dense": labels("dense", mapped)}
+            saved_nystrom = cl._NYSTROM_THRESHOLD, cl._NYSTROM_ANCHORS
+            cl._NYSTROM_THRESHOLD, cl._NYSTROM_ANCHORS = 128, 64
+            try:
+                runs["nystrom"] = labels("nystrom", mapped)
+            finally:
+                cl._NYSTROM_THRESHOLD, cl._NYSTROM_ANCHORS = saved_nystrom
+            (a, _), (b, _) = labels("longform", mapped, embeddings_per_chunk=100)
+            check(same_partition(a, b), f"5e: partitions differ on the long-form path (audio {i})")
+            (a, _), (b, _) = runs["nystrom"]
+            held["nystrom"] += same_partition(a, b)
+            (a, sa), (b, sb) = runs["dense"]
+            if min(sa["eigengap"], sb["eigengap"]) > DIAR_GAP:
+                held["dense"] += 1
+                check(np.array_equal(a, b), f"5e: labels differ on the dense path (audio {i})")
+            else:
+                p = sa["p_neighbors"]
+                check(p == sb["p_neighbors"], f"5e: neighbour counts differ (audio {i})")
+                (ea, ra), (eb, rb) = [eigenspace(d, m, p) for d, m in zip(diars, mapped)]
+                eig_err = max(eig_err, ra, rb, float(np.abs(ea - eb).max()))
+                check(eig_err <= DIAR_EIG_TOL, f"5e: eigenvectors or eigenvalues off by"
+                      f" {eig_err:.2e} > {DIAR_EIG_TOL} (audio {i})")
+            if first is None and held["dense"]:
+                first = (i, audio, mapped, b)
+        check(held["dense"] > 0, f"5e: the dense eigengap was at most {DIAR_GAP} on all"
+              f" {DIAR_AUDIOS} audios (choose another --seed)")
+        check(2 * held["nystrom"] >= DIAR_AUDIOS, f"5e: Nyström partitions equal on only"
+              f" {held['nystrom']} of {DIAR_AUDIOS} audios")
+        i, audio, mapped, cpu_labels = first
+        seg = torch.stack(mapped[1])
+        sig = [msdd.msdd_mean_sigmoids(d.msdd_params, seg.to(d.device), cpu_labels,
+                                       emb_cfg.multiscale_weights)[0] for d in diars]
+        sig_err = float(np.abs(sig[0] - sig[1]).max())
+        check(sig_err <= DIAR_MSDD_TOL, f"5e: MSDD mean sigmoids differ by {sig_err:.2e}")
+        turns = [d.diarize_waveform(audio, num_speakers=k) for d in diars]
+        check(turns[0] == turns[1] and len({s for _, _, s in turns[0]}) == k,
+              "5e: the turns differ between the devices")
+    print(f"[5e diarization parity] {devices[0]} against {devices[1]}, TitaNet small + MSDD,"
+          f" {DIAR_AUDIOS} audios of 60 s of 3 voices, n_base {n_base} | embeddings max|err|"
+          f" {emb_err:.2e} (<= {DIAR_EMB_TOL}) | dense labels equal on the {held['dense']}/"
+          f"{DIAR_AUDIOS} with an eigengap > {DIAR_GAP}, elsewhere the eigenvectors' residual and"
+          f" the eigenvalues' difference max {eig_err:.2e} (<= {DIAR_EIG_TOL}) | Nyström"
+          f" (threshold 128) partitions equal on {held['nystrom']}/{DIAR_AUDIOS} (>= half) |"
+          f" on audio {i}: MSDD mean sigmoids max|err| {sig_err:.2e} (<= {DIAR_MSDD_TOL}), turns"
+          f" equal ({len(turns[0])})"
+          f" | long-form (chunks of 100) partitions equal on {DIAR_AUDIOS}/{DIAR_AUDIOS}")
+
+
+def phase_diar_main(seed: int) -> dict:
+    """6e: the diarization main path at full width, as bench.py drives it:
+    NeuralDiarizer(create_config(tmp, "telephonic"), force_large_models=True)
+    (TitaNet-large, the full MarbleNet forward, the telephonic MSDD, random
+    weights from --seed unless $WNT_MODEL_DIR holds them) on four voices:
+    one warm request of 2 minutes, then 15, 30 and 60 minutes with
+    num_speakers=4, which take the dense eigh, the Nyström and the long-form
+    paths. Each prints its counts, its wall time, its stage times (each
+    after a device synchronise) and its peak device memory; no kernel of
+    the port lies on this path, and none launches."""
+    import torch
+
+    from whisper_nemo_tpu_torch.config import create_config
+    from whisper_nemo_tpu_torch.diarize import NeuralDiarizer
+    from whisper_nemo_tpu_torch.diarize.pipeline import _TITANET_LARGE
+    from whisper_nemo_tpu_torch.engine.precision import full_f32
+    from whisper_nemo_tpu_torch.ops import attention, beam_permute, cross_decode, ctc, mel, self_decode
+
+    counters = (cross_decode.cross_attention_decode_layered, attention.encoder_attention,
+                mel.log_mel_raw, ctc.viterbi_batch, self_decode.self_attention_decode_ancestry_layered,
+                beam_permute.beam_permute_cache, beam_permute.beam_permute_cache_inplace)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        diar = NeuralDiarizer(create_config(tmp, "telephonic"), force_large_models=True,
+                              device="cuda", seed=seed)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        check(diar.spk_dims == _TITANET_LARGE and diar.msdd_params is not None
+              and (diar.vad_params is not None or diar._bench_vad_params is not None),
+              "6e: not TitaNet-large with MSDD and MarbleNet")
+        t0 = time.time()
+        diar.diarize_waveform(voices(120.0, seed + 30, 4), num_speakers=4)
+        torch.cuda.synchronize()
+        print(f"[6e diarization] telephonic, TitaNet-large + MarbleNet + MSDD, f32 (TF32 off):"
+              f" setup {setup_s:.1f} s, warm request (2 min) {time.time() - t0:.2f} s")
+        for minutes, path in ((15, "dense"), (30, "nystrom"), (60, "longform")):
+            audio = voices(minutes * 60.0, seed + 31 + minutes, 4)
+            for fn in counters:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()  # the models and what earlier phases keep
+            stats = {}
+            t1 = time.time()
+            turns = diar.diarize_waveform(audio, num_speakers=4, stats=stats)
+            torch.cuda.synchronize()
+            wall = time.time() - t1
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            peak_own = peak - held / 2**30
+            launches = [fn.launches for fn in counters]
+            duration = len(audio) / SR
+            check(stats["path"] == path, f"6e {minutes} min: n_base {stats['n_base']} took the"
+                  f" {stats['path']} path, not {path}")
+            check(stats["msdd_pairs"] == 6 and stats["speakers"] == 4,
+                  f"6e {minutes} min: {stats['speakers']} speakers, {stats['msdd_pairs']} MSDD pairs")
+            check(bool(turns) and all(0.0 <= s < e <= duration + 1e-6 and 0 <= k < 4
+                                      for s, e, k in turns), f"6e {minutes} min: turns out of range")
+            check(sum(e - s for s, e, _ in turns) > 0.5 * duration,
+                  f"6e {minutes} min: the turns cover under half the audio")
+            check(launches == [0] * len(counters), f"6e: a kernel launched on the diarization path"
+                  f" {launches}")
+            seconds = stats["seconds"]
+            embed_s = sum(v for k, v in seconds.items() if k.startswith("embed_"))
+            frames = sum(n * (int(w * SR) // 160 + 1) for n, w in zip(
+                stats["windows"], diar.cfg.diarizer.speaker_embeddings.parameters.window_length_in_sec))
+            tflop = titanet_flops_per_frame(diar.spk_dims) * frames / 1e12
+            stages = " ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+            print(f"[6e diarization] {minutes} min: n_base {stats['n_base']}, windows per scale"
+                  f" {stats['windows']}, path {stats['path']} (eigengap"
+                  f" {stats.get('eigengap', float('nan')):.4f}), speakers {stats['speakers']}, MSDD"
+                  f" {stats['msdd_pairs']} pairs x {stats['msdd_windows']} windows, turns"
+                  f" {len(turns)} | wall {wall:.3f} s ({wall / duration * 3600:.2f} s per audio"
+                  f" hour; stages {sum(seconds.values()):.3f} s of it) | embeddings {embed_s:.3f} s:"
+                  f" {frames} window-frames, {tflop:.1f} TFLOP, {tflop / embed_s:.1f} TFLOP/s"
+                  f" ({tflop * 1e12 / embed_s / F32_FLOPS:.0%} of the f32 peak) | stages (s): {stages} |"
+                  f" peak device memory {peak:.2f} GiB ({peak_own:.2f} above the {held / 2**30:.2f}"
+                  f" held before the request)")
+            out[minutes] = {"wall": wall, "peak_gib": peak, "peak_own_gib": peak_own, **stats}
+
+        # one embedding batch of the 1.5 s scale (256 windows of 151 frames), timed apart
+        g = torch.Generator(device=diar.device).manual_seed(seed + 40)
+        feats = torch.randn((256, diar.spk_dims.n_mels, 151), device=diar.device, generator=g)
+        lens = torch.full((256,), 151, device=diar.device)
+        with full_f32(), torch.inference_mode():
+            batch_ms = cuda_ms(lambda i=0: diar._embed(feats, lens), 5)
+            prof = profiled_device_ms(lambda i=0: diar._embed(feats, lens), 3)
+        tflop = titanet_flops_per_frame(diar.spk_dims) * 256 * 151 / 1e12
+        print(f"[6e diarization] one TitaNet-large batch, 256 windows x 151 frames: {batch_ms:.2f} ms"
+              f" (CUDA events), {tflop * 1e3:.1f} GFLOP, {tflop / batch_ms * 1e3:.1f} TFLOP/s; bound"
+              f" {tflop * 1e12 / F32_FLOPS * 1e3:.2f} ms (operations at the f32 peak) | {fmt_top(prof)}")
+    del diar
+    torch.cuda.empty_cache()
+    return out
+
+
+def titanet_flops_per_frame(dims) -> float:
+    """Multiply-adds x 2 of TitaNet's convs and pooling GEMMs per frame."""
+    c = dims.filters
+    flops = 2 * dims.n_mels * (dims.kernels[0] + c[0])  # prologue: depthwise + pointwise
+    for bi, c_out in enumerate(c[1:-1], start=1):
+        c_in = c[bi - 1]
+        flops += 2 * c_in * c_out  # the residual's 1x1
+        for r in range(dims.repeat):
+            cin = c_in if r == 0 else c_out
+            flops += 2 * cin * (dims.kernels[bi] + c_out)
+    flops += 2 * c[-2] * c[-1] * dims.kernels[-1]  # epilogue
+    return flops + 4 * c[-1] * dims.attn_hidden  # attention's two GEMMs
+
+
+def fmt_top(prof: dict, n: int = 6) -> str:
+    """Total device ms per call, split by kernel name into convolutions,
+    other GEMMs and the rest, and the ``n`` largest kernels."""
+    if not prof:
+        return "device time not measured (the profiler saw no device activity)"
+    total = sum(prof.values())
+    is_conv = {k: "conv" in k.lower() or "implicit" in k.lower() for k in prof}
+    conv = sum(ms for k, ms in prof.items() if is_conv[k])
+    gemm = sum(ms for k, ms in prof.items() if not is_conv[k] and "gemm" in k.lower())
+    top = sorted(prof.items(), key=lambda kv: kv[1], reverse=True)[:n]
+    short = "; ".join(f"{k.replace('void ', '')[:60]} {ms:.3f}" for k, ms in top)
+    return (f"device time {total:.3f} ms per call (names with conv {conv:.3f}, gemm {gemm:.3f},"
+            f" other {total - conv - gemm:.3f}); largest: {short}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1932,12 +2277,14 @@ def main() -> int:
     phase_align_parity(args.seed)
     phase_sequential_parity(args.seed)
     phase_widths_parity(args.seed)
+    phase_diar_parity(args.seed)
     main_run = phase_main_path(args.seed)
     phase_stage_times(main_run, a, e)
     phase_align_stage_times(main_run, d["a"])
     seq = phase_sequential_main(main_run, args.seed)
     phase_sequential_stage_times(main_run, seq, c)
     default = phase_default_main(args.seed)
+    phase_diar_main(args.seed)
 
     import torch
 

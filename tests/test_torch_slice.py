@@ -196,7 +196,11 @@ def test_port_imports_no_jax():
     )
     assert {"whisper_nemo_tpu_torch.align.segmented", "whisper_nemo_tpu_torch.ops.ctc",
             "whisper_nemo_tpu_torch.models.wav2vec2", "whisper_nemo_tpu_torch.asr.openai_api",
-            "whisper_nemo_tpu_torch.engine.streaming"} <= set(modules)
+            "whisper_nemo_tpu_torch.engine.streaming", "whisper_nemo_tpu_torch.diarize.pipeline",
+            "whisper_nemo_tpu_torch.diarize.clustering", "whisper_nemo_tpu_torch.models.msdd",
+            "whisper_nemo_tpu_torch.models.titanet", "whisper_nemo_tpu_torch.models.marblenet",
+            "whisper_nemo_tpu_torch.models.conv_asr", "whisper_nemo_tpu_torch.ops.features",
+            "whisper_nemo_tpu_torch.config", "whisper_nemo_tpu_torch.audio.wav"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
@@ -221,7 +225,8 @@ def test_port_sources_name_no_jax():
 
 @pytest.mark.parametrize("name", [
     "text/tokenizer.py", "text/languages.py", "vad/binarize.py", "align/text.py",
-    "align/uroman.py", "align/uroman_ext.py", "align/pinyin_data.py",
+    "align/uroman.py", "align/uroman_ext.py", "align/pinyin_data.py", "config.py",
+    "diarize/rttm.py", "diarize/segments.py", "diarize/metrics.py", "audio/wav.py",
 ])
 def test_carried_copies_match_the_jax_package(name):
     """The jax-free host modules the port carries are the JAX package's,

@@ -17,6 +17,7 @@ F32_TIE_TOL of it). At "float16" the bounds are those of the int8 tests
 round differently in the two frameworks.
 """
 
+import functools
 import inspect
 
 import jax
@@ -66,16 +67,39 @@ def jparams():
     return init(jax.random.PRNGKey(3), jw.WhisperDims(*DIMS))
 
 
-def _jax_engine(jparams, width):
-    return jax_api.WhisperEngine("tiny.en", width, params=jparams, dims=jw.WhisperDims(*DIMS),
-                                 tokenizer=JaxTokenizer.byte_fallback(multilingual=False),
-                                 mesh=False)
+@pytest.fixture(scope="module")
+def jax_engines(jparams):
+    """``jax_engines(width)``: one JAX engine per width, shared by the
+    module's tests, so that each engine's encoder compiles once."""
+    engines = {}
+
+    def get(width):
+        if width not in engines:
+            engines[width] = jax_api.WhisperEngine(
+                "tiny.en", width, params=jparams, dims=jw.WhisperDims(*DIMS),
+                tokenizer=JaxTokenizer.byte_fallback(multilingual=False), mesh=False)
+        return engines[width]
+
+    return get
 
 
 def _port_model(jparams, width):
     return WhisperModel("tiny.en", device="cpu", compute_type=width,
                         params=params_from_jax(jparams), dims=tw.WhisperDims(*DIMS),
                         tokenizer=WhisperTokenizer.byte_fallback(multilingual=False))
+
+
+@functools.partial(jax.jit, static_argnums=(3, 4, 5, 6))
+def _jax_prefill_logits(stacked, feats, tokens, dims, dtype, kv_int8, n_prompt):
+    """JAX's logits of a teacher-forced prefill of ``tokens`` from row
+    ``n_prompt - 1`` on, at the engine's width, in one compile rather
+    than one per operation and shape."""
+    ckv = jws.cross_attention_kv_stacked(stacked, feats, dims)
+    if kv_int8:
+        ckv = jws.quantize_cross_kv_stacked(ckv)
+    cache = jws.init_stacked_cache(tokens.shape[0], dims, dtype, cache_len=256)
+    x, _ = jws.prefill_cache_stacked(stacked, tokens, cache, ckv, dims, dtype)
+    return jw._vocab_logits(stacked["decoder"], x[:, n_prompt - 1 :])
 
 
 def _jax_forced_logits(jeng, audio, windows, hyps):
@@ -88,17 +112,12 @@ def _jax_forced_logits(jeng, audio, windows, hyps):
         n = min(e - s, 480000)
         waves[i, :n] = audio[s : s + n]
     feats = jeng.encode_windows(jax_mel_batch(jnp.asarray(waves), 80)).astype(jeng.dtype)
-    stacked = jeng._params_stacked
-    ckv = jws.cross_attention_kv_stacked(stacked, feats, jeng.dims)
-    if jeng.kv_int8:
-        ckv = jws.quantize_cross_kv_stacked(ckv)
     opts = jeng._make_opts()
     prompt = jeng.tokenizer.sot_sequence(None, without_timestamps=True)
     n = len(prompt) + max(len(h) for h in hyps)
     tokens = jnp.asarray([(prompt + list(h) + [opts.eot] * n)[:n] for h in hyps])
-    cache = jws.init_stacked_cache(BATCH, jeng.dims, jeng.dtype, cache_len=256)
-    x, _ = jws.prefill_cache_stacked(stacked, tokens, cache, ckv, jeng.dims, jeng.dtype)
-    logits = np.array(jw._vocab_logits(stacked["decoder"], x[:, len(prompt) - 1 :]), np.float32)
+    logits = np.array(_jax_prefill_logits(jeng._params_stacked, feats, tokens, jeng.dims,
+                                          jeng.dtype, jeng.kv_int8, len(prompt)), np.float32)
     logits += build_suppress_mask(jeng.dims.n_vocab, get_suppressed_tokens(jeng.tokenizer, (-1,)))
     logits[..., opts.timestamp_begin :] = -np.inf
     logits[..., opts.no_timestamps] = -np.inf
@@ -108,7 +127,7 @@ def _jax_forced_logits(jeng, audio, windows, hyps):
 
 @pytest.mark.parametrize("mode", ["greedy", "beam5"])
 @pytest.mark.parametrize("width", ["default", "float16"])
-def test_batched_widths_match_jax(jparams, width, mode):
+def test_batched_widths_match_jax(jparams, jax_engines, width, mode):
     """The batched facade at the JAX package's widths, one batch of two
     windows: the engines' widths agree (f32 weights and a float cross-KV
     at "default"; weights stored in bf16 and the int8 cross-KV at
@@ -117,7 +136,7 @@ def test_batched_widths_match_jax(jparams, width, mode):
     picks within the width's tie bound, or (beam 5) the port's hypothesis
     rescored by JAX within the width's score bound per token and JAX's
     best within its tie bound of it."""
-    jeng, model = _jax_engine(jparams, width), _port_model(jparams, width)
+    jeng, model = jax_engines(width), _port_model(jparams, width)
     teng = model.engine
     assert (teng.dtype == torch.float32) == (jeng.dtype == jnp.float32)
     assert jeng.kv_int8 == (width == "float16")
@@ -162,7 +181,7 @@ def test_batched_widths_match_jax(jparams, width, mode):
             assert max(top2[1] - top2[0], gap) < tie_tol, (row, j, top2, gap)
 
 
-def test_sequential_float32_matches_jax(jparams):
+def test_sequential_float32_matches_jax(jparams, jax_engines):
     """The sequential facade at "float32" (the JAX package's alias of
     "default"): ``WhisperModel.transcribe(audio, "en", vad_filter=True)``
     at beam 5, temperature 0, timestamps and conditioning on the previous
@@ -171,7 +190,7 @@ def test_sequential_float32_matches_jax(jparams):
     the port's seek with the port's conditioning tail, and meets the
     window rule of tests/test_torch_sequential.py (tokens equal, or the
     port's hypothesis rescored by JAX at f32)."""
-    jeng, model = _jax_engine(jparams, "default"), _port_model(jparams, "float32")
+    jeng, model = jax_engines("default"), _port_model(jparams, "float32")
     teng = model.engine
     assert teng.dtype == torch.float32 and teng.cross_kv_bits is None
     audio = speechlike(40.0, 0)
@@ -271,7 +290,7 @@ def test_attention_kt_ancestry_f32_matches_jax():
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
 
 
-def test_facades_default_to_the_reference_width():
+def test_facades_default_to_the_reference_width(jparams):
     """``WhisperModel(name)``, ``WhisperEngine(name)`` and
     ``load_model(non-large name)`` default to "default" (f32, float
     cross-KV), as the JAX package's facades and engine do;
@@ -280,7 +299,7 @@ def test_facades_default_to_the_reference_width():
                       (WhisperEngine.__init__, jax_api.WhisperEngine.__init__)):
         assert (inspect.signature(port).parameters["compute_type"].default
                 == inspect.signature(ref).parameters["compute_type"].default == "default")
-    tree = params_from_jax(jw.init_whisper_params(jax.random.PRNGKey(0), jw.WhisperDims(*DIMS)))
+    tree = params_from_jax(jparams)
     kw = dict(params=tree, dims=tw.WhisperDims(*DIMS),
               tokenizer=WhisperTokenizer.byte_fallback(multilingual=False))
     for engine in (WhisperModel("tiny.en", device="cpu", **kw).engine,

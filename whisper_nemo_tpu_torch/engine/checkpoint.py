@@ -4,9 +4,12 @@ Counterpart of ``whisper_nemo_tpu/engine/checkpoint.py``. Checkpoints are
 the JAX package's flat ``.npz`` files (path-joined keys); both packages
 read the same files. :func:`params_from_jax` turns the JAX nested tree
 into the port's: the same dict, tensors instead of arrays, conv weights
-from ``[k, in, out]`` to PyTorch's ``[out, in, k]`` (Whisper's and the
-wav2vec2 aligner's, whose grouped positional conv goes from
-``[k, in/groups, out]`` to ``[out, in/groups, k]``).
+from ``[k, in/groups, out]`` to PyTorch's ``[out, in/groups, k]``. Each
+family has its rule: Whisper's two convs and the wav2vec2 aligner's by
+name; in the diarization convnets (MarbleNet, TitaNet and the Jasper
+stacks of ``models/conv_asr.py``) every 3-D array, as they hold no other;
+MSDD's weights are matrices and keep their layout. :func:`save_params`
+writes a port tree back as such a file.
 """
 
 from __future__ import annotations
@@ -60,13 +63,22 @@ def _to_tensors(tree: Any, device) -> Any:
     return torch.from_numpy(np.array(arr)).to(device)  # a writable copy
 
 
-def params_from_jax(tree: Any, device="cpu") -> Any:
-    """JAX param tree (nested dicts/lists of numpy-convertible arrays) ->
-    the port's tree of tensors on ``device``. Conv weights go from WIO
-    ``[k, in, out]`` to OIW ``[out, in, k]`` (Whisper's two convs, the
-    wav2vec2 feature extractor's and its grouped positional conv);
-    everything else keeps its layout and dtype."""
-    params = _to_tensors(tree, device)
+def _permute_3d(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _permute_3d(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_permute_3d(v) for v in tree]
+    return tree.permute(2, 1, 0).contiguous() if tree.ndim == 3 else tree
+
+
+def _swap_conv_layout(params: Any) -> Any:
+    """Conv weights between ``[k, in/groups, out]`` and ``[out, in/groups,
+    k]``, either way (the swap is its own inverse): Whisper's two convs,
+    the wav2vec2 feature extractor's and its grouped positional conv,
+    every 3-D array of a diarization convnet. Rebinds the weights in the
+    tree's own dicts."""
+    if "prologue" in params or "blocks" in params:  # MarbleNet, TitaNet, conv_asr
+        return _permute_3d(params)
     convs = [params.get("encoder", {}).get(name) for name in _CONV_KEYS]
     if "fe" in params:  # wav2vec2
         convs += params["fe"]["conv_layers"] + [params["enc"]["pos_conv"]]
@@ -74,6 +86,47 @@ def params_from_jax(tree: Any, device="cpu") -> Any:
         if conv is not None:
             conv["w"] = conv["w"].permute(2, 1, 0).contiguous()
     return params
+
+
+def params_from_jax(tree: Any, device="cpu") -> Any:
+    """JAX param tree (nested dicts/lists of numpy-convertible arrays) ->
+    the port's tree of tensors on ``device``, conv weights in PyTorch's
+    layout; everything else keeps its layout and dtype."""
+    return _swap_conv_layout(_to_tensors(tree, device))
+
+
+def _to_numpy(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_numpy(v) for v in tree]
+    return (tree.float() if tree.dtype == torch.bfloat16 else tree).numpy()
+
+
+def params_to_jax(params: Any) -> Any:
+    """The inverse of :func:`params_from_jax`: the port's tree -> the JAX
+    package's tree of numpy arrays (bf16 as f32)."""
+    return _to_numpy(_swap_conv_layout(to_device(params, "cpu")))
+
+
+def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts and lists -> path-joined flat keys (the layout of the
+    JAX package's ``flatten_tree``)."""
+    flat: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            flat.update(flatten_tree(v, f"{prefix}{_SEP}{k}" if prefix else k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            flat.update(flatten_tree(v, f"{prefix}{_SEP}{i}"))
+    else:
+        flat[prefix] = np.asarray(tree)
+    return flat
+
+
+def save_params(path: str, params: Any) -> None:
+    """Writes the port's tree as the JAX package's ``.npz`` checkpoint."""
+    np.savez(path, **flatten_tree(params_to_jax(params)))
 
 
 def to_device(tree: Any, device) -> Any:

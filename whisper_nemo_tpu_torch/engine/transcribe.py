@@ -50,6 +50,7 @@ from .decode import (
     detect_language,
     greedy_decode,
 )
+from .precision import full_f32
 from .quantize import quantize_whisper_params
 
 FRAMES_PER_WINDOW = 3000  # 30 s of 10 ms mel frames
@@ -128,20 +129,14 @@ def _full_f32_at_f32_widths(method):
     """Runs an engine method with full-f32 matrix products and
     convolutions on the card (TF32 off) when the engine runs an f32 width,
     as the JAX package computes on the CPU, where the port is held against
-    it; the caller's settings come back after the call. The reduced widths
-    leave them as they are. The settings are process-wide: a thread that
-    runs another model meanwhile sees them too."""
+    it (``full_f32``). The reduced widths leave the settings as they are."""
 
     @functools.wraps(method)
     def run(self, *args, **kwargs):
         if self.dtype != torch.float32:
             return method(self, *args, **kwargs)
-        saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-        try:
+        with full_f32():
             return method(self, *args, **kwargs)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
     return run
 

@@ -1,2 +1,2 @@
 """Kernels and tensor ops: attention, cross- and self-attention decode, beam permute,
-mel, framing, CTC."""
+mel, framing, CTC, and the diarization models' log-mel features."""

@@ -1,14 +1,26 @@
-"""Per-frame signal energy in PyTorch.
+"""Signal framing and per-frame energy in PyTorch.
 
-Counterpart of ``whisper_nemo_tpu/ops/framing.py:frame_energy``. A
-frame's energy is a sum over whole hop blocks plus part of the next one,
-so only the ``[T / hop]`` block sums of the squared signal are formed,
-never the ``[n_frames, win]`` frame matrix.
+Counterpart of ``whisper_nemo_tpu/ops/framing.py``. Frames are a strided
+view of the signal (``unfold``); the JAX package builds them from shifted
+reshapes because element gathers are slow on the TPU. A frame's energy is
+a sum over whole hop blocks plus part of the next one, so only the
+``[T / hop]`` block sums of the squared signal are formed, never the
+``[n_frames, win]`` frame matrix.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def frame_signal(x: torch.Tensor, n_frames: int, win: int, hop: int) -> torch.Tensor:
+    """``[B, T]`` (or ``[T]``) -> ``[B, n_frames, win]`` frames at stride
+    ``hop``, a view where the signal reaches the last frame; a shorter one
+    is zero-padded first."""
+    need = (n_frames - 1) * hop + win
+    if x.shape[-1] < need:
+        x = torch.nn.functional.pad(x, (0, need - x.shape[-1]))
+    return x.unfold(-1, win, hop)[..., :n_frames, :]
 
 
 def frame_energy(x: torch.Tensor, n_frames: int, win: int, hop: int) -> torch.Tensor:
