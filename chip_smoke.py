@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, one line each:
-  1. device: name, power limit, versions; fails without CUDA;
+  1. device: name, power limit, versions, whether libav, nltk and
+     tokenizers are present (the port needs none of them); fails without
+     CUDA;
   2. build: the port's CUDA kernels from whisper_nemo_tpu_torch/csrc, one
      nvcc per source, all started together;
   3. kernel A (cross-attention decode) against its plain version at
@@ -67,6 +69,14 @@ Phases, one line each:
      audio and Nyström (threshold lowered to 128) partitions on at least
      half; MSDD's mean sigmoids within 1e-5 and turns equal on an audio
      with the dense gap;
+  5f. flow parity: the CLI flow (cli/flow.run_sequential, --device auto)
+     at small dims on the GPU against its tail on the CPU from the same
+     AsrResult, on the first of eight seeded audios of 60 s of three
+     voices with the eigengap: the aligned words' texts and segments
+     equal and their times within FLOW_MOVE_TOL (two emission frames),
+     the speaker turns equal, and the .txt and .srt bytes of the CPU's
+     diarization, punctuation and writers over the card's words equal to
+     the card's;
   6. the main path, as the CLI flow runs it: WhisperModel("medium.en",
      compute_type="int8") and BatchedInferencePipeline.transcribe(
      batch_size=32) at its default beam 5 on two requests of 20 minutes
@@ -101,22 +111,47 @@ Phases, one line each:
      num_speakers=4, which take the dense eigh, the Nyström and the
      long-form paths (asserted); per request its counts, wall time, stage
      times and peak device memory;
+  6f. the CLI flow at full width: run_sequential with --whisper-model
+     medium.en --batch-size 8 --device auto --domain telephonic --no-stem
+     (medium.en "default", beam 5; the MMS-300M-sized aligner in bf16;
+     TitaNet-large and the telephonic MSDD from seeded checkpoints; XLM-R
+     base) on 5 minutes of four voices: the wall, each stage's seconds,
+     the counts, the peak device memory, launches of B, C, D and E against
+     the batches, steps and Viterbi groups (A and F at 0), the outputs
+     checked; then the same in process with the user's command's
+     arguments, `-a <60 s wav> --device cuda --no-stem` (medium.en
+     "float16": the int8 cross-KV, A's launches against the steps too);
+     then that command, `python3 -m whisper_nemo_tpu_torch.cli`, as a
+     subprocess (exit 0, both files well formed);
+  6g. kernels A to E against their plain versions at every shape 6f's
+     two in-process runs launched them at (recorded per launch): B on
+     the f32 and bf16 encoders and the aligner at batch 8, C at batch 8,
+     D at each Viterbi group's trellis, E at each cluster split its
+     wrapper chose (at the largest visible length with it), A at the
+     int8 cross-KV of 8 windows at beam 5; the flow's JSON entries come
+     from these, one a shape, with its launches in 6f;
   7. the card's name and power limit, the kernels' JSON line, and last
      {"ok": true, "device": {...}}.
 Any phase that fails raises, and the script exits non-zero without the
 last line. Weights are random from --seed unless $WNT_MODEL_DIR holds
-medium.en.npz, ctc_aligner.npz and (for 6e) the diarization checkpoints.
+medium.en.npz, ctc_aligner.npz and (for 6e) the diarization checkpoints;
+phases 5f and 6f make their own model directories, with a vocabulary
+whose tokens are words (``word_vocab``).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import ctypes.util
+import functools
+import importlib.util
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -228,17 +263,22 @@ def voices(seconds: float, seed: int, n_speakers: int = 3) -> np.ndarray:
 
 
 @contextlib.contextmanager
-def model_dir(path: str):
-    """$WNT_MODEL_DIR set to ``path`` within the block."""
-    saved = os.environ.get("WNT_MODEL_DIR")
-    os.environ["WNT_MODEL_DIR"] = path
+def env_var(name: str, value: str):
+    """The environment variable ``name`` set to ``value`` within the block."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
     try:
-        yield path
+        yield value
     finally:
         if saved is None:
-            del os.environ["WNT_MODEL_DIR"]
+            del os.environ[name]
         else:
-            os.environ["WNT_MODEL_DIR"] = saved
+            os.environ[name] = saved
+
+
+def model_dir(path: str):
+    """$WNT_MODEL_DIR set to ``path`` within the block."""
+    return env_var("WNT_MODEL_DIR", path)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -311,13 +351,16 @@ def phase_device():
         has_regex = True
     except ImportError:
         has_regex = False
-    # the JAX package's native audio decoder links libav; the port's
-    # slice takes waveforms and does not build it yet
+    # the port's audio decoder links libav where it builds (else it reads
+    # PCM WAV only); the JAX package's punctuation reads nltk and
+    # tokenizers, which the port does not need
     libav = ctypes.util.find_library("avformat") or "absent"
+    present = {name: importlib.util.find_spec(name) is not None for name in ("nltk", "tokenizers")}
     print(
         f"[1 device] {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | devices {torch.cuda.device_count()} | regex {has_regex}"
-        f" | libavformat {libav} (the native decoder is not part of the port yet)"
+        f" | libavformat {libav} (without it the port's decoder reads PCM WAV only)"
+        f" | nltk {present['nltk']}, tokenizers {present['tokenizers']} (the port needs neither)"
     )
     return smi
 
@@ -521,15 +564,68 @@ def _kernel_ms(prof: dict, name: str) -> float:
     return sum(hits) if hits else float("nan")
 
 
+def kernel_c_case(waves, n_mels: int, case: str, timed: bool, tag: str = "3e kernel C") -> dict:
+    """Kernel C on ``waves [n, 480000]`` against its plain version (cuBLAS
+    f32, TF32 off) and against the same formula in float64, after
+    whisper's normalization (bounds BOUND_C and BOUND_C_F64); times per
+    call (CUDA events; where ``timed``, the profiler's device time) beside
+    the plain version and torch.stft: cuFFT's STFT alone, not the whole
+    function, which no single PyTorch call computes (the port never calls
+    it). Prints one line under ``tag``."""
+    import torch
+
+    from whisper_nemo_tpu_torch.ops import mel
+
+    n = waves.shape[0]
+    hann = torch.hann_window(mel.N_FFT, periodic=True, device=waves.device)
+    got = mel._log_mel_cuda(waves, n_mels)
+    want = mel._log_mel_plain(waves, n_mels)
+    exact = mel._log_mel_plain(waves, n_mels, torch.float64)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "kernel C gave non-finite values")
+    err = float((mel._finalize(got) - mel._finalize(want)).abs().max())
+    err64 = float((mel._finalize(got.double()) - mel._finalize(exact)).abs().max())
+    plain_err64 = float((mel._finalize(want.double()) - mel._finalize(exact)).abs().max())
+    raw_err = float((got - want).abs().max())
+    if case == "silence":
+        check(bool((got == -10.0).all()), "kernel C: silence is not at the clamp")
+    reps = 50 if n == 1 else 20
+    ms = cuda_ms(lambda i=0: mel._log_mel_cuda(waves, n_mels), reps)
+    plain_ms = cuda_ms(lambda i=0: mel._log_mel_plain(waves, n_mels), reps // 2)
+    stft_ms = cuda_ms(lambda i=0: torch.stft(
+        waves, mel.N_FFT, hop_length=mel.HOP_LENGTH, window=hann, center=True,
+        pad_mode="reflect", return_complex=True), reps)
+    device_ms = (_kernel_ms(profiled_device_ms(
+        lambda i=0: mel._log_mel_cuda(waves, n_mels), 10), "log_mel_kernel")
+        if timed else float("nan"))
+    bound_ms, bound_by = kernel_c_bound(n, n_mels)
+    design = kernel_c_design_ops(n_mels) * n
+    print(f"[{tag}] {n_mels} mels, {case}: max|err| {err:.3e} against the plain"
+          f" version (bound {BOUND_C:g}), {err64:.3e} against float64 (bound"
+          f" {BOUND_C_F64:g}; the plain version's own {plain_err64:.3e}), normalized;"
+          f" un-normalized log10 against the plain version {raw_err:.3e} | kernel"
+          f" {ms:.4f} ms a call of {n} window(s) by CUDA events, device"
+          f" {device_ms:.4f} ms (profiler) | plain {plain_ms:.4f} ms | torch.stft"
+          f" {stft_ms:.4f} ms (the STFT alone, not the whole function) | bound"
+          f" {bound_ms:.5f} ms ({bound_by}), kernel at {bound_ms / ms:.2%} of it by"
+          f" events | the design's FFT and banded mel: {design / 1e9:.4f} GFLOP,"
+          f" {design / F32_FLOPS * 1e3:.5f} ms at the f32 rate,"
+          f" {design / ms / 1e9:.2f} TFLOP/s run")
+    check(err <= BOUND_C, f"kernel C {n_mels} mels, {case}: max|err| {err} against the"
+          f" plain version > {BOUND_C} (against float64: kernel {err64}, plain"
+          f" {plain_err64})")
+    check(err64 <= BOUND_C_F64, f"kernel C {n_mels} mels, {case}: max|err| {err64}"
+          f" against float64 > {BOUND_C_F64}")
+    return {"max_abs_err": err, "max_abs_err_f64": err64, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": stft_ms}
+
+
 def phase_kernel_c(seed: int) -> dict:
-    """Kernel C against its plain version (cuBLAS f32, TF32 off) and
-    against the same formula in float64, after whisper's normalization,
-    at 80 and 128 mel bands, on one 30 s window, a 7.3 s one zero-padded
-    to 30 s, silence (every bin at the clamp, exactly) and a batch of 32
-    windows. Times per call (CUDA events; the profiler's device time for
-    one window and the batch), beside the plain version and torch.stft:
-    cuFFT's STFT alone, not the whole function, which no single PyTorch
-    call computes (the port never calls it)."""
+    """Kernel C (``kernel_c_case``) at 80 and 128 mel bands, on one 30 s
+    window, a 7.3 s one zero-padded to 30 s, silence (every bin at the
+    clamp, exactly) and a batch of 32 windows; one window and the batch
+    also by the profiler's device time."""
     import torch
 
     from whisper_nemo_tpu_torch.ops import mel
@@ -543,56 +639,13 @@ def phase_kernel_c(seed: int) -> dict:
         "silence": np.zeros((1, mel.N_SAMPLES), np.float32),
         "batch of 32": speechlike(32 * 30.0, seed + 7).reshape(32, mel.N_SAMPLES),
     }
-    hann = torch.hann_window(mel.N_FFT, periodic=True, device=dev)
     out = {}
     for n_mels in (80, 128):
         for case, waves_np in cases.items():
-            waves = torch.from_numpy(waves_np).to(dev)
-            n = waves.shape[0]
-            got = mel._log_mel_cuda(waves, n_mels)
-            want = mel._log_mel_plain(waves, n_mels)
-            exact = mel._log_mel_plain(waves, n_mels, torch.float64)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()), "kernel C gave non-finite values")
-            err = float((mel._finalize(got) - mel._finalize(want)).abs().max())
-            err64 = float((mel._finalize(got.double()) - mel._finalize(exact)).abs().max())
-            plain_err64 = float((mel._finalize(want.double()) - mel._finalize(exact)).abs().max())
-            raw_err = float((got - want).abs().max())
-            if case == "silence":
-                check(bool((got == -10.0).all()), "kernel C: silence is not at the clamp")
-            reps = 50 if n == 1 else 20
-            ms = cuda_ms(lambda i=0: mel._log_mel_cuda(waves, n_mels), reps)
-            plain_ms = cuda_ms(lambda i=0: mel._log_mel_plain(waves, n_mels), reps // 2)
-            stft_ms = cuda_ms(lambda i=0: torch.stft(
-                waves, mel.N_FFT, hop_length=mel.HOP_LENGTH, window=hann, center=True,
-                pad_mode="reflect", return_complex=True), reps)
             timed = case in ("window", "batch of 32")
-            device_ms = (_kernel_ms(profiled_device_ms(
-                lambda i=0: mel._log_mel_cuda(waves, n_mels), 10), "log_mel_kernel")
-                if timed else float("nan"))
-            bound_ms, bound_by = kernel_c_bound(n, n_mels)
-            design = kernel_c_design_ops(n_mels) * n
-            print(f"[3e kernel C] {n_mels} mels, {case}: max|err| {err:.3e} against the plain"
-                  f" version (bound {BOUND_C:g}), {err64:.3e} against float64 (bound"
-                  f" {BOUND_C_F64:g}; the plain version's own {plain_err64:.3e}), normalized;"
-                  f" un-normalized log10 against the plain version {raw_err:.3e} | kernel"
-                  f" {ms:.4f} ms a call of {n} window(s) by CUDA events, device"
-                  f" {device_ms:.4f} ms (profiler) | plain {plain_ms:.4f} ms | torch.stft"
-                  f" {stft_ms:.4f} ms (the STFT alone, not the whole function) | bound"
-                  f" {bound_ms:.5f} ms ({bound_by}), kernel at {bound_ms / ms:.2%} of it by"
-                  f" events | the design's FFT and banded mel: {design / 1e9:.4f} GFLOP,"
-                  f" {design / F32_FLOPS * 1e3:.5f} ms at the f32 rate,"
-                  f" {design / ms / 1e9:.2f} TFLOP/s run")
-            check(err <= BOUND_C, f"kernel C {n_mels} mels, {case}: max|err| {err} against the"
-                  f" plain version > {BOUND_C} (against float64: kernel {err64}, plain"
-                  f" {plain_err64})")
-            check(err64 <= BOUND_C_F64, f"kernel C {n_mels} mels, {case}: max|err| {err64}"
-                  f" against float64 > {BOUND_C_F64}")
+            r = kernel_c_case(torch.from_numpy(waves_np).to(dev), n_mels, case, timed)
             if timed:
-                out[(n_mels, n)] = {"max_abs_err": err, "max_abs_err_f64": err64, "ms": ms,
-                                    "device_ms": device_ms, "plain_ms": plain_ms,
-                                    "bound_ms": bound_ms, "bound_by": bound_by,
-                                    "library_ms": stft_ms}
+                out[(n_mels, waves_np.shape[0])] = r
     # White noise, printed and not held to the bounds: its largest error
     # after normalization sits in a few near-zero bins of one-bin bands (at
     # 128 mels), where every f32 evaluation, the plain version's too, loses
@@ -711,14 +764,6 @@ def viterbi_bound_ms(r: int, t: int, n_states: int) -> tuple:
 
 
 def phase_kernel_d(seed: int) -> dict:
-    import torch
-
-    from whisper_nemo_tpu_torch.ops import ctc
-
-    def plain(e, a):
-        alpha, bps = ctc._viterbi_forward_states(e, a)
-        return alpha, bps, ctc._viterbi_backtrack(alpha, bps)
-
     from whisper_nemo_tpu_torch.ops import _build
 
     spills = [ln.strip() for ln in _build.build_logs.get("viterbi", "").splitlines()
@@ -733,26 +778,41 @@ def phase_kernel_d(seed: int) -> dict:
     for case, (r, t, n, star, reps) in {
         "a": (48, 2560, 512, 0, 20), "b": (1, 15000, 4600, 6, 5), "c": (2, 1500, 15000, 0, 3),
     }.items():
-        e, a = _viterbi_inputs(r, t, n, seed + ord(case), star)
-        got = ctc._viterbi_cuda(e, a)
-        want = plain(e, a)
-        torch.cuda.synchronize()
-        for g, w, what in zip(got, want, ("alpha", "bps", "path")):
-            check(g.dtype == w.dtype and torch.equal(g, w),
-                  f"kernel D case ({case}): {what} differs from the plain version")
-        err = float((got[0] - want[0]).abs().max())
-        ms = cuda_ms(lambda i=0: ctc._viterbi_cuda(e, a), reps)
-        plain_ms = cuda_ms(lambda i=0: plain(e, a), 1)
-        bound_ms, bound_by = viterbi_bound_ms(r, t, 2 * n + 1)
-        print(f"[3b kernel D] ({case}) R={r} T={t} L={2 * n + 1}: alpha, bps, path bit-equal"
-              f" (max|err| {err:g}, bound {BOUND_D:g}) | kernel {ms:.3f} ms"
-              f" ({ms * 1e3 / (t - 1):.3f} us per each of the {t - 1} dependent steps), plain"
-              f" {plain_ms:.1f} ms | bound {bound_ms:.4f} ms ({bound_by}), kernel at"
-              f" {bound_ms / ms:.1%} of it")
-        out[case] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None}
-        del e, a, got, want
+        out[case] = kernel_d_case(r, t, n, seed + ord(case), star, reps, f"({case})")
     return out
+
+
+def kernel_d_case(r: int, t: int, n: int, seed: int, star: int, reps: int, what: str,
+                  tag: str = "3b kernel D") -> dict:
+    """Kernel D on ``_viterbi_inputs(r, t, n)`` against its plain version,
+    alpha, backpointers and path bit for bit; its time, the plain
+    version's and the bound. Prints one line under ``tag``."""
+    import torch
+
+    from whisper_nemo_tpu_torch.ops import ctc
+
+    def plain(e, a):
+        alpha, bps = ctc._viterbi_forward_states(e, a)
+        return alpha, bps, ctc._viterbi_backtrack(alpha, bps)
+
+    e, a = _viterbi_inputs(r, t, n, seed, star)
+    got = ctc._viterbi_cuda(e, a)
+    want = plain(e, a)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("alpha", "bps", "path")):
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              f"kernel D {what}: {name} differs from the plain version")
+    err = float((got[0] - want[0]).abs().max())
+    ms = cuda_ms(lambda i=0: ctc._viterbi_cuda(e, a), reps)
+    plain_ms = cuda_ms(lambda i=0: plain(e, a), 1)
+    bound_ms, bound_by = viterbi_bound_ms(r, t, 2 * n + 1)
+    print(f"[{tag}] {what} R={r} T={t} L={2 * n + 1}: alpha, bps, path bit-equal"
+          f" (max|err| {err:g}, bound {BOUND_D:g}) | kernel {ms:.3f} ms"
+          f" ({ms * 1e3 / (t - 1):.3f} us per each of the {t - 1} dependent steps), plain"
+          f" {plain_ms:.1f} ms | bound {bound_ms:.4f} ms ({bound_by}), kernel at"
+          f" {bound_ms / ms:.1%} of it")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def _beam_cache(seed: int, dtype=None):
@@ -2133,6 +2193,238 @@ def phase_diar_parity(seed: int, devices=("cuda", "cpu")) -> None:
           f" | long-form (chunks of 100) partitions equal on {DIAR_AUDIOS}/{DIAR_AUDIOS}")
 
 
+# -- the CLI flow (phases 5f and 6f) -----------------------------------------
+
+# 5f: the largest shift of a word's start or end between the card's aligner
+# (bf16 emissions) and the CPU's (f32) on the same words: two of the
+# aligner's 20 ms emission frames. Random weights leave Viterbi near-ties
+# that rounding may tip by a frame (0.020 s on the card, NVIDIA H100 80GB
+# HBM3 at 700 W); a fault of the card's path moves words by far more.
+FLOW_MOVE_TOL = 0.04
+
+SRT_CUE = re.compile(r"(\d+)\n(\d\d):(\d\d):(\d\d),(\d\d\d) --> (\d\d):(\d\d):(\d\d),(\d\d\d)\n"
+                     r"Speaker (\d+): (.*)")
+
+
+def word_vocab() -> dict:
+    """A Whisper ``vocab.json`` for the ``.en`` models whose tokens are
+    words: the 256 byte symbols, then for each id up to 50,255 a
+    letters-only name, every 5th capitalised, every 7th ending in "." and
+    every 11th in ",". Random weights decode tokens of every id, which the
+    byte-fallback tokenizer turns into almost no text; this vocabulary
+    turns them into words to align, punctuate and split into sentences."""
+    from whisper_nemo_tpu_torch.text.tokenizer import bytes_to_unicode
+
+    vocab = {c: b for b, c in bytes_to_unicode().items()}
+    for i in range(256, 50256):
+        word, v = "", i
+        while True:
+            v, r = divmod(v, 26)
+            word += chr(ord("a") + r)
+            if not v:
+                break
+        word = word.capitalize() if i % 5 == 0 else word
+        vocab["Ġ" + word + ("." if i % 7 == 0 else "," if i % 11 == 0 else "")] = i
+    return vocab
+
+
+def write_word_vocab(directory: str) -> None:
+    with open(os.path.join(directory, "vocab.json"), "w") as f:
+        json.dump(word_vocab(), f)
+    with open(os.path.join(directory, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    """``obj.name`` set to ``value`` within the block."""
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def recording(stack: contextlib.ExitStack, obj, name: str, calls: list, sync=None):
+    """Wraps ``obj.name`` within ``stack``: each call appends (its
+    seconds, its result, its positional arguments) to ``calls``; ``sync``
+    (a device synchronise) runs before the clock stops."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.time()
+        out = fn(*args, **kwargs)
+        if sync is not None:
+            sync()
+        calls.append((time.time() - t0, out, args))
+        return out
+
+    stack.enter_context(patched(obj, name, wrapper))
+
+
+def check_outputs(base: str, duration: float, what: str) -> dict:
+    """``<base>.txt`` and ``<base>.srt`` as the writers make them: UTF-8
+    with a BOM, cues numbered 1..n, ``HH:MM:SS,mmm --> HH:MM:SS,mmm``,
+    start <= end <= the audio's length, one ``Speaker k: text`` line a
+    cue; the text file holds the same speakers. Returns the counts."""
+    raw = {ext: open(f"{base}.{ext}", "rb").read() for ext in ("txt", "srt")}
+    check(all(b.startswith(b"\xef\xbb\xbf") for b in raw.values()), f"{what}: no UTF-8 BOM")
+    blocks = raw["srt"].decode("utf-8-sig").strip().split("\n\n")
+    cues = [SRT_CUE.fullmatch(b) for b in blocks]
+    bad = [b for b, c in zip(blocks, cues) if c is None]
+    check(not bad, f"{what}: malformed cues {bad[:2]!r}")
+    check([int(c.group(1)) for c in cues] == list(range(1, len(cues) + 1)),
+          f"{what}: cues not numbered 1..n")
+    for c in cues:
+        h0, m0, s0, ms0, h1, m1, s1, ms1 = (int(x) for x in c.groups()[1:9])
+        start, end = h0 * 3600 + m0 * 60 + s0 + ms0 / 1e3, h1 * 3600 + m1 * 60 + s1 + ms1 / 1e3
+        check(0.0 <= start <= end <= duration + 1e-3, f"{what}: cue {c.group(1)} spans"
+              f" {start}-{end} s of a {duration:.3f} s audio")
+    speakers = {int(c.group(10)) for c in cues}
+    txt = raw["txt"].decode("utf-8-sig")
+    check({int(s) for s in re.findall(r"^Speaker (\d+):", txt, re.M)} == speakers,
+          f"{what}: the text file's speakers differ from the SRT's")
+    return {"cues": len(cues), "speakers": speakers,
+            "words": sum(len(c.group(11).split()) for c in cues), "raw": raw}
+
+
+def flow_trees(directory: str, seed: int) -> None:
+    """5f's seeded small trees, saved by the port into ``directory``: the
+    aligner at the WNT_TEST_SMALL_MODELS dims, TitaNet small as
+    ``titanet_large.npz``, the telephonic MSDD, the punctuation model at
+    its small dims, and the word vocabulary."""
+    import torch
+
+    from whisper_nemo_tpu_torch.align.api import load_alignment_model
+    from whisper_nemo_tpu_torch.diarize.pipeline import _TITANET_SMALL
+    from whisper_nemo_tpu_torch.engine.checkpoint import save_params
+    from whisper_nemo_tpu_torch.models import msdd, punctuation, titanet
+
+    g = torch.Generator().manual_seed(seed + 50)
+    aligner, _ = load_alignment_model("cpu", seed=seed + 51)
+    save_params(os.path.join(directory, "ctc_aligner.npz"), aligner.params)
+    save_params(os.path.join(directory, "titanet_large.npz"),
+                titanet.init_titanet_params(_TITANET_SMALL, "cpu", g))
+    save_params(os.path.join(directory, "diar_msdd_telephonic.npz"),
+                msdd.init_msdd_params(msdd.MsddDims(), "cpu", g))
+    save_params(os.path.join(directory, "kredor_punctuate-all.npz"),
+                punctuation.init_xlmr_params(punctuation.SMALL_DIMS, "cpu", g))
+    write_word_vocab(directory)
+
+
+def phase_flow_parity(seed: int, devices=("cuda", "cpu")) -> None:
+    """5f: the CLI flow on ``devices[0]`` against its tail on
+    ``devices[1]``, at small dims: tiny.en (random, seeded on the device),
+    the aligner, TitaNet small and the punctuation model at their small
+    dims, the telephonic MSDD, seeded trees saved into a temporary
+    $WNT_MODEL_DIR with the word vocabulary. The audio is the first of
+    DIAR_AUDIOS seeded 60 s of three voices whose Laplacian has an
+    eigengap above DIAR_GAP on ``devices[1]`` (where the gap is smaller,
+    two eigensolvers' labels may differ, phase 5e). ``run_sequential`` on
+    a WAV of it at ``--device auto`` (``devices[0]``); then, from the same
+    AsrResult on ``devices[1]``: ``run_alignment``, whose words must have
+    the same texts and segments (their times are printed: the card's
+    aligner runs bf16, the CPU's f32, and random weights give the Viterbi
+    near-ties, so times may move, as phase 5b holds only on shared
+    emissions); ``run_diarization``, whose turns must equal the card's;
+    and ``_merge_and_write`` of the card's words and these turns, whose
+    ``.txt`` and ``.srt`` bytes must equal the card's. The bytes of the
+    tail on its own words are printed beside them. ASR is held GPU against
+    CPU by phases 5, 5c and 5d."""
+    import torch
+
+    from whisper_nemo_tpu_torch.audio import write_wav
+    from whisper_nemo_tpu_torch.cli import flow
+    from whisper_nemo_tpu_torch.config import create_config
+    from whisper_nemo_tpu_torch.diarize import NeuralDiarizer, pipeline
+    from whisper_nemo_tpu_torch.models import punctuation
+
+    gpu, cpu = devices
+    sync = torch.cuda.synchronize if torch.device(gpu).type == "cuda" else None
+    small_xlmr = functools.partial(punctuation.XlmRobertaDims, **vars(punctuation.SMALL_DIMS))
+    with contextlib.ExitStack() as stack:
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        models = os.path.join(tmp, "models")
+        os.makedirs(models)
+        stack.enter_context(model_dir(models))
+        stack.enter_context(env_var("WNT_TEST_SMALL_MODELS", "1"))
+        stack.enter_context(patched(pipeline, "_TITANET_LARGE", pipeline._TITANET_SMALL))
+        stack.enter_context(patched(punctuation, "XlmRobertaDims", small_xlmr))
+        flow_trees(models, seed)
+
+        probe = NeuralDiarizer(create_config(os.path.join(tmp, "probe"), "telephonic"),
+                               device=cpu)
+        gaps = []
+        for i in range(DIAR_AUDIOS):
+            audio = voices(60.0, seed + 60 + i, 3)
+            stats = {}
+            probe.diarize_waveform(audio, stats=stats)
+            gaps.append(stats.get("eigengap", 0.0))
+            if gaps[-1] > DIAR_GAP:
+                break
+        check(gaps[-1] > DIAR_GAP, f"5f: no audio of {DIAR_AUDIOS} has an eigengap above"
+              f" {DIAR_GAP} (gaps {gaps}; choose another --seed)")
+        del probe
+
+        runs = {name: os.path.join(tmp, name) for name in ("card", "tail", "tail_own")}
+        for path in runs.values():
+            os.makedirs(path)
+            write_wav(os.path.join(path, "call.wav"), audio)
+        asr, words, turns, card_stats = [], [], [], {}
+        waveform_call = NeuralDiarizer.diarize_waveform
+        with contextlib.ExitStack() as card:
+            recording(card, flow, "run_asr", asr, sync)
+            recording(card, flow, "run_alignment", words, sync)
+            recording(card, flow, "run_diarization", turns, sync)
+            card.enter_context(patched(NeuralDiarizer, "diarize_waveform", lambda self, a, **kw:
+                                       waveform_call(self, a, stats=card_stats, **kw)))
+            card.enter_context(contextlib.chdir(runs["card"]))
+            t0 = time.time()
+            flow.run_sequential(flow.build_arg_parser().parse_args(
+                ["-a", os.path.join(runs["card"], "call.wav"), "--whisper-model", "tiny.en",
+                 "--no-stem", "--device", "auto" if torch.device(gpu).type == "cuda" else gpu]))
+            card_s = time.time() - t0
+        check(card_stats["eigengap"] > DIAR_GAP, f"5f: the eigengap on {gpu} is"
+              f" {card_stats['eigengap']:.2e}")
+        result, card_words, card_turns = asr[0][1], words[0][1], turns[0][1]
+        check(len(card_words) > 20, f"5f: the card's flow aligned {len(card_words)} words")
+
+        with contextlib.chdir(runs["tail"]):
+            cpu_words = flow.run_alignment(result.audio, result.full_transcript, result.language,
+                                           8, cpu, timed_segments=result.segments)
+            cpu_turns = flow.run_diarization(result.audio, os.path.join(runs["tail"], "temp"),
+                                             device=cpu)
+        check([(w["text"], w["segment"]) for w in cpu_words]
+              == [(w["text"], w["segment"]) for w in card_words],
+              "5f: the aligned words' texts or segments differ between the devices")
+        moved = max(max(abs(a["start"] - b["start"]), abs(a["end"] - b["end"]))
+                    for a, b in zip(cpu_words, card_words))
+        check(moved <= FLOW_MOVE_TOL, f"5f: the card's aligner moved a word by {moved:.3f} s"
+              f" from the CPU's (limit {FLOW_MOVE_TOL} s)")
+        check(cpu_turns == card_turns, "5f: the speaker turns differ between the devices")
+        tails = {}
+        for name, tail_words in (("tail", card_words), ("tail_own", cpu_words)):
+            flow._merge_and_write([dict(w) for w in tail_words], cpu_turns, result.language,
+                                  os.path.join(runs[name], "call.wav"), cpu)
+            tails[name] = check_outputs(os.path.join(runs[name], "call"), 60.0, f"5f {name}")
+        got = check_outputs(os.path.join(runs["card"], "call"), 60.0, "5f card")
+        check(got["raw"] == tails["tail"]["raw"],
+              "5f: the card's .txt or .srt bytes differ from the CPU tail's")
+        check(not os.path.exists(os.path.join(runs["card"], "temp_outputs")),
+              "5f: temp_outputs was left behind")
+    print(f"[5f flow parity] run_sequential (tiny.en random, the aligner, TitaNet small, MSDD,"
+          f" the punctuation model at small dims) --device auto on {gpu} in {card_s:.1f} s,"
+          f" against the flow's tail on {cpu} from the same AsrResult, audio {i} of 60 s of 3"
+          f" voices (eigengaps {', '.join(f'{g:.4f}' for g in gaps)}; on {gpu}"
+          f" {card_stats['eigengap']:.4f}) | {len(card_words)} words, texts and segments equal,"
+          f" times moved by up to {moved:.3f} s (limit {FLOW_MOVE_TOL} s; the aligner"
+          f" {'bf16' if sync else 'f32'} against f32) | turns equal"
+          f" ({len(card_turns)}, {len(got['speakers'])} speakers) | .txt and .srt bytes equal"
+          f" ({got['cues']} cues) | the tail on its own words: bytes"
+          f" {'equal' if tails['tail_own']['raw'] == got['raw'] else 'differ'}")
+
+
 def phase_diar_main(seed: int) -> dict:
     """6e: the diarization main path at full width, as bench.py drives it:
     NeuralDiarizer(create_config(tmp, "telephonic"), force_large_models=True)
@@ -2229,6 +2521,344 @@ def phase_diar_main(seed: int) -> dict:
     return out
 
 
+FLOW_SECONDS = 300.0  # 6f's audio: five minutes of four voices
+CLI_SECONDS = 60.0  # the --device cuda run's audio and the CLI subprocess's
+
+
+def recording_launches(stack: contextlib.ExitStack) -> dict:
+    """Wraps the launchers of kernels A to E within ``stack``: each launch
+    adds one to the count of its shape, ``{letter: Counter(key)}``, keyed
+    by what ``phase_flow_kernels`` rebuilds the inputs from (kernel E's
+    key holds the visible length, which sets its cluster split)."""
+    from whisper_nemo_tpu_torch.ops import attention, cross_decode, ctc, mel, self_decode
+
+    seen = {letter: collections.Counter() for letter in "ABCDE"}
+    keys = {
+        "A": (cross_decode, "_cross_attention_decode_cuda",
+              lambda q, kv, k_scale, v_scale, layer, k_len, bits, beam, *_:
+              (q.dtype, tuple(kv.shape), k_len, bits, beam)),
+        "B": (attention, "_encoder_attention_cuda", lambda q, *_: (q.dtype, tuple(q.shape))),
+        "C": (mel, "_log_mel_cuda", lambda waves, n_mels, *_: (tuple(waves.shape), n_mels)),
+        "D": (ctc, "_viterbi_cuda", lambda e_states, *_: tuple(e_states.shape)),
+        "E": (self_decode, "_self_decode_cuda",
+              lambda q, k, v, anc, mask, layer, beam, n_vis, *_:
+              (q.dtype, tuple(k.shape), beam, mask.numel() // k.shape[-1], n_vis)),
+    }
+    for letter, (module, name, key) in keys.items():
+        def wrapper(*args, _fn=getattr(module, name), _key=key, _seen=seen[letter]):
+            out = _fn(*args)
+            _seen[_key(*args)] += 1
+            return out
+
+        stack.enter_context(patched(module, name, wrapper))
+    return seen
+
+
+def run_flow(argv: list, audio_path: str, seconds: float, work: str, what: str) -> dict:
+    """``run_sequential`` on ``argv`` in process from ``work``: every
+    kernel's count set to 0 just before and read just after, each launch's
+    shape recorded (``recording_launches``), each stage timed after a
+    device synchronise. Checks what every width shares: the outputs
+    (``check_outputs``), C one launch a batch, E each decode step's
+    decoder layers, B each batch's encoder layers and each emission
+    batch's aligner layers, D one a Viterbi group, F none, the recorded
+    shapes adding up to the counts, every speaker of the SRT in the RTTM,
+    the punctuation model labelling every word, temp_outputs gone."""
+    import torch
+
+    from whisper_nemo_tpu_torch import asr as fw
+    from whisper_nemo_tpu_torch.align import segmented
+    from whisper_nemo_tpu_torch.align.api import CHUNK_SECONDS
+    from whisper_nemo_tpu_torch.cli import flow
+    from whisper_nemo_tpu_torch.ops import attention, beam_permute, cross_decode, ctc, mel, self_decode
+
+    counters = (cross_decode.cross_attention_decode_layered, attention.encoder_attention,
+                mel.log_mel_raw, ctc.viterbi_batch, self_decode.self_attention_decode_ancestry_layered,
+                beam_permute.beam_permute_cache, beam_permute.beam_permute_cache_inplace)
+    sync = torch.cuda.synchronize
+    calls = {name: [] for name in ("decode", "asr", "align", "diarize", "punct", "merge",
+                                   "labels", "model", "aligner")}
+    with contextlib.ExitStack() as timing:
+        recording(timing, fw, "decode_audio", calls["decode"], sync)
+        recording(timing, fw, "WhisperModel", calls["model"], sync)
+        recording(timing, flow, "load_alignment_model", calls["aligner"], sync)
+        recording(timing, flow, "run_asr", calls["asr"], sync)
+        recording(timing, flow, "run_alignment", calls["align"], sync)
+        recording(timing, flow, "run_diarization", calls["diarize"], sync)
+        recording(timing, flow, "maybe_restore_punctuation", calls["punct"], sync)
+        recording(timing, flow, "_merge_and_write", calls["merge"], sync)
+        recording(timing, flow, "apply_punctuation_labels", calls["labels"])
+        shapes = recording_launches(timing)
+        align_call = segmented.align_segments
+        align_stats = {}
+        timing.enter_context(patched(segmented, "align_segments", lambda *a, **kw:
+                                     align_call(*a, stats=align_stats, **kw)))
+        timing.enter_context(contextlib.chdir(work))
+        args = flow.build_arg_parser().parse_args(argv)
+        for fn in counters:
+            fn.launches = 0
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.time()
+        flow.run_sequential(args)
+        sync()
+        wall = time.time() - t0
+        launches = [fn.launches for fn in counters]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    a, b, c, d, e, *f = launches
+    eng = calls["model"][0][1].engine
+    steps = list(eng.last_decode_steps)
+    aligner_layers = calls["aligner"][0][1][0].dims.num_layers
+    words = calls["align"][0][1]
+    turns = calls["diarize"][0][1]
+    wsm, labeled = calls["labels"][0][2]
+    out = check_outputs(os.path.splitext(audio_path)[0], seconds, what)
+    check(f == [0, 0], f"{what}: kernel F launched {f}")
+    check(c == len(steps) and e == sum(steps) * eng.dims.n_text_layer and e > 0,
+          f"{what}: kernels C {c} and E {e} against {len(steps)} batches of steps {steps}")
+    emission_batches = math.ceil(math.ceil(seconds / CHUNK_SECONDS) / args.batch_size)
+    dispatched = sum(len(rows) for rows in align_stats["groups"].values())
+    check(b == len(steps) * eng.dims.n_audio_layer + emission_batches * aligner_layers,
+          f"{what}: kernel B launched {b} times, expected {len(steps)} batches x"
+          f" {eng.dims.n_audio_layer} + {emission_batches} emission batches x {aligner_layers}")
+    check(d == dispatched > 0, f"{what}: kernel D launched {d} times for {dispatched} groups")
+    check([sum(shapes[k].values()) for k in "ABCDE"] == [a, b, c, d, e],
+          f"{what}: the recorded launches {[sum(shapes[k].values()) for k in 'ABCDE']} are not"
+          f" the counts {[a, b, c, d, e]}")
+    check(out["speakers"] <= {s for _, _, s in turns}, f"{what}: speakers {out['speakers']} of"
+          f" the SRT have no turn in the RTTM")
+    check(len(wsm) == len(labeled) == len(words) > 0 and len(calls["labels"]) == 1,
+          f"{what}: punctuation labelled {len(labeled)} of {len(words)} words")
+    check(not os.path.exists(os.path.join(work, "temp_outputs")), f"{what}: temp_outputs left")
+    check(out["words"] == len(words) and out["cues"] > 1,
+          f"{what}: the SRT holds {out['words']} of the {len(words)} aligned words")
+    secs = {k: sum(t for t, *_ in calls[k]) for k in calls}
+    stages = {"decode": secs["decode"], "ASR": secs["asr"] - secs["decode"],
+              "of it the model's set-up": secs["model"], "alignment": secs["align"],
+              "diarization": secs["diarize"], "punctuation": secs["punct"],
+              "mapping and writers": secs["merge"] - secs["punct"]}
+    return {"wall": wall, "launches": dict(zip("abcde", (a, b, c, d, e))), "stages": stages,
+            "steps": steps, "dtype": eng.dtype, "kv_bits": eng.cross_kv_bits,
+            "layers": (eng.dims.n_audio_layer, eng.dims.n_text_layer, aligner_layers),
+            "emission_batches": emission_batches, "groups": dispatched, "words": len(words),
+            "turns": len(turns), "out": out, "peak": peak, "held": held, "shapes": shapes}
+
+
+def fmt_flow(r: dict, seconds: float) -> str:
+    enc, dec, aligner = r["layers"]
+    n, steps, (a, b, c, d, e) = len(r["steps"]), sum(r["steps"]), r["launches"].values()
+    return (f"wall {r['wall']:.2f} s ({r['wall'] / seconds * 3600:.1f} s per audio hour, set-up"
+            f" of every model included) | stages (s): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in r["stages"].items())
+            + f" | {r['words']} words, {r['out']['cues']} sentences = cues,"
+            f" {len(r['out']['speakers'])} speakers ({r['turns']} turns) | peak device memory"
+            f" {r['peak']:.2f} GiB ({r['held'] / 2**30:.2f} held before) | launches A {a}, B {b}"
+            f" (= {n} batches x {enc} + {r['emission_batches']} emission batches x {aligner}),"
+            f" C {c} (one a batch), D {d} (= {r['groups']} Viterbi groups), E {e} (= {steps}"
+            f" steps x {dec}), F 0")
+
+
+def phase_flow_main(seed: int, smi: str) -> dict:
+    """6f: the CLI flow at full width, in process (``run_flow``):
+    ``run_sequential`` with ``--whisper-model medium.en --batch-size 8
+    --device auto --domain telephonic --no-stem`` (medium.en at
+    "default": f32, the float cross-KV, kernel A held at 0; beam 5, the
+    facade's default) on a WAV of FLOW_SECONDS of four voices, from a
+    temporary working directory. $WNT_MODEL_DIR holds seeded full-width
+    ``titanet_large.npz`` and ``diar_msdd_telephonic.npz`` and the word
+    vocabulary; Whisper, the MMS-300M-sized aligner (bf16) and XLM-R base
+    are seeded random inits. Then the same flow with the user's command's
+    arguments, ``-a <CLI_SECONDS wav> --device cuda --no-stem`` (medium.en
+    at "float16": bf16 weights, the int8 cross-KV), in process, with A's
+    launches held to the decode steps' decoder layers; then that command,
+    ``python3 -m whisper_nemo_tpu_torch.cli``, as a subprocess: exit 0 and
+    both files well formed. Returns both in-process runs."""
+    import torch
+
+    from whisper_nemo_tpu_torch.audio import write_wav
+    from whisper_nemo_tpu_torch.diarize import pipeline
+    from whisper_nemo_tpu_torch.engine.checkpoint import save_params
+    from whisper_nemo_tpu_torch.models import msdd, titanet
+
+    with contextlib.ExitStack() as stack:
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        models = os.path.join(tmp, "models")
+        work = os.path.join(tmp, "work")
+        os.makedirs(models)
+        os.makedirs(work)
+        stack.enter_context(model_dir(models))
+        g = torch.Generator().manual_seed(seed + 70)
+        save_params(os.path.join(models, "titanet_large.npz"),
+                    titanet.init_titanet_params(pipeline._TITANET_LARGE, "cpu", g))
+        save_params(os.path.join(models, "diar_msdd_telephonic.npz"),
+                    msdd.init_msdd_params(msdd.MsddDims(), "cpu", g))
+        write_word_vocab(models)
+        audio_path = os.path.join(work, "call.wav")
+        write_wav(audio_path, voices(FLOW_SECONDS, seed + 71, 4))
+
+        auto = run_flow(["-a", audio_path, "--whisper-model", "medium.en", "--batch-size", "8",
+                         "--device", "auto", "--domain", "telephonic", "--no-stem"],
+                        audio_path, FLOW_SECONDS, work, "6f")
+        check(auto["dtype"] == torch.float32 and auto["kv_bits"] is None,
+              "6f: --device auto did not run medium.en at \"default\"")
+        check(auto["launches"]["a"] == 0, f"6f: kernel A launched {auto['launches']['a']} times"
+              f" over the float cross-KV")
+        print(f"[6f flow] {smi} | run_sequential --whisper-model medium.en --batch-size 8 --device"
+              f" auto --domain telephonic --no-stem on {FLOW_SECONDS:.0f} s of four voices:"
+              f" {fmt_flow(auto, FLOW_SECONDS)}")
+        torch.cuda.empty_cache()
+
+        cli_path = os.path.join(work, "cli.wav")
+        write_wav(cli_path, voices(CLI_SECONDS, seed + 72, 4))
+        cuda = run_flow(["-a", cli_path, "--device", "cuda", "--no-stem"], cli_path, CLI_SECONDS,
+                        work, "6f --device cuda")
+        check(cuda["dtype"] == torch.bfloat16 and cuda["kv_bits"] == 8,
+              "6f: --device cuda did not run medium.en at \"float16\" (bf16, int8 cross-KV)")
+        check(cuda["launches"]["a"] == sum(cuda["steps"]) * cuda["layers"][1],
+              f"6f --device cuda: kernel A launched {cuda['launches']['a']} times for"
+              f" {sum(cuda['steps'])} steps x {cuda['layers'][1]} decoder layers")
+        print(f"[6f flow] {smi} | run_sequential -a <{CLI_SECONDS:.0f} s wav> --device cuda"
+              f" --no-stem (the user's command's arguments; medium.en \"float16\": bf16 weights,"
+              f" int8 cross-KV, kernel A) on four voices: {fmt_flow(cuda, CLI_SECONDS)}")
+        torch.cuda.empty_cache()
+
+        user = os.path.join(tmp, "user")
+        os.makedirs(user)
+        user_path = os.path.join(user, "cli.wav")
+        write_wav(user_path, voices(CLI_SECONDS, seed + 72, 4))
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "whisper_nemo_tpu_torch.cli", "-a", user_path, "--device",
+             "cuda", "--no-stem"], cwd=user, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))})
+        cli_s = time.time() - t0
+        check(proc.returncode == 0, f"6f: the CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        cli = check_outputs(os.path.splitext(user_path)[0], CLI_SECONDS, "6f CLI")
+    print(f"[6f flow] {smi} | python3 -m whisper_nemo_tpu_torch.cli -a <{CLI_SECONDS:.0f} s wav>"
+          f" --device cuda --no-stem: exit 0 in {cli_s:.1f} s (a new process: imports, every"
+          f" model's set-up and the kernels' loads included) | {cli['cues']} cues,"
+          f" {len(cli['speakers'])} speakers")
+    return {"auto": auto, "cuda": cuda}
+
+
+def phase_flow_kernels(runs: dict, seed: int) -> list:
+    """6g: kernels A to E held against their plain versions at every shape
+    the two in-process runs of 6f launched them at (``recording_launches``),
+    on seeded inputs of those shapes: A, B and E within BOUND_A, BOUND_B
+    and BOUND_E/BOUND_E_F32, C within BOUND_C and BOUND_C_F64, D bit for
+    bit. Kernel E is held once for each cluster split its wrapper chose,
+    at the largest visible length launched with it and with a beam's runs
+    as the ancestry map; its split is checked to be the one the flow got.
+    Prints each shape's launches in each run and returns the JSON entries
+    of the flow's kernels: B, C, D and E of the --device auto run and A of
+    the --device cuda run (kernel A does not run at auto), one a shape,
+    each with its launches in that run."""
+    import torch
+
+    from whisper_nemo_tpu_torch.ops import attention as at
+    from whisper_nemo_tpu_torch.ops import cross_decode as cd
+    from whisper_nemo_tpu_torch.ops import self_decode as sd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 73)
+    sms = sd._sms(dev.index or 0)
+
+    def e_group(key):  # kernel E's launches grouped by their cluster split
+        dtype, shape, beam, mask_rows, n_vis = key
+        return dtype, shape, beam, mask_rows, sd._cluster_size(shape[1] // beam, shape[2], n_vis,
+                                                               sms)
+
+    launches = {}  # (run, letter, shape) -> launches; E's shape is its group
+    widest = {}  # E's group -> its largest visible length
+    for run, r in runs.items():
+        for letter, seen in r["shapes"].items():
+            for key, n in seen.items():
+                shape = e_group(key) if letter == "E" else key
+                launches[(run, letter, shape)] = launches.get((run, letter, shape), 0) + n
+                if letter == "E":
+                    widest[shape] = max(widest.get(shape, 0), key[-1])
+
+    def where(letter, shape):
+        return ", ".join(f"{launches[(run, letter, shape)]} launches in the {run} run"
+                         for run in runs if (run, letter, shape) in launches)
+
+    held = {}
+    for letter, shape in sorted({k[1:] for k in launches}, key=str):
+        if letter == "A":
+            dtype, (L, W, H, rows, kp), k_len, bits, beam = shape
+            D = rows // 2 if bits == 8 else rows
+            kv = torch.randint(-127, 128, (L, W, H, rows, kp), device=dev, generator=g,
+                               dtype=torch.int8)
+            k_scale = 0.02 + 0.02 * torch.rand((H, D), device=dev, generator=g)
+            v_scale = (0.5 + torch.rand((H, D), device=dev, generator=g)) / 127
+            q = torch.randn((W * beam, 1, H, D), device=dev, generator=g).to(dtype)
+            r = kernel_a_case(cd, q, kv, k_scale, v_scale, k_len, bits, beam, 48)
+            desc = f"{str(dtype)[6:]} q, W={W} beam {beam} bits {bits} k_len {k_len}"
+            print(f"[6g kernel A] {desc} ({where(letter, shape)}): {fmt_a(r)}")
+            check(r["max_abs_err"] <= BOUND_A, f"6g kernel A {desc}: max|err|"
+                  f" {r['max_abs_err']} > {BOUND_A}")
+            del kv
+        elif letter == "B":
+            dtype, (B, T, H, D) = shape
+            r = kernel_b_case(at, B, T, H, dtype, g, D)
+            desc = f"{str(dtype)[6:]} B={B} T={T} H={H} D={D}"
+            print(f"[6g kernel B] {desc} ({where(letter, shape)}): {fmt_b(r)}")
+            check(r["max_abs_err"] <= BOUND_B, f"6g kernel B {desc}: max|err|"
+                  f" {r['max_abs_err']} > {BOUND_B}")
+        elif letter == "C":
+            (n, samples), n_mels = shape
+            waves = torch.from_numpy(speechlike(n * samples / SR, seed + 74).reshape(n, samples))
+            desc = f"batch of {n}"
+            r = kernel_c_case(waves.to(dev), n_mels, f"{desc} ({where(letter, shape)})", True,
+                              tag="6g kernel C")
+            desc = f"{n_mels} mels, {desc}"
+        elif letter == "D":
+            rows, t, n_states = shape
+            check(n_states % 2 == 1, f"6g kernel D: a trellis of {n_states} states")
+            desc = f"R={rows} T={t} L={n_states}"
+            r = kernel_d_case(rows, t, (n_states - 1) // 2, seed + 75, 0, 20,
+                              f"({where(letter, shape)})", tag="6g kernel D")
+        else:
+            dtype, (L, bk, H, D, S), beam, mask_rows, cluster = shape
+            n_vis = widest[shape]
+            k, v = (torch.randn((L, bk, H, D, S), device=dev, generator=g, dtype=dtype)
+                    for _ in range(2))
+            q = torch.randn((bk, 1, H, D), device=dev, generator=g).to(dtype)
+            anc = beam_runs_anc(bk // beam, beam, S, g)
+            visible = torch.arange(S, device=dev) < n_vis
+            if mask_rows == 1:
+                mask = torch.where(visible, 0.0, float("-inf"))[None, None, None, :]
+            else:
+                keep = torch.rand((bk, S), device=dev, generator=g) > 0.2
+                keep[:, 0] = True
+                mask = torch.where(keep & visible, 0.0, float("-inf"))[:, None, None, :].contiguous()
+            r = kernel_e_case(sd, at, q, k, v, anc, mask, n_vis, 48)
+            desc = (f"{str(dtype)[6:]} B·K={bk} S={S} beam {beam}, {mask_rows} mask row(s),"
+                    f" cluster {cluster}, at n_visible {n_vis}")
+            print(f"[6g kernel E] {desc}, a beam's runs ({where(letter, shape)}): {fmt_e(r)}")
+            check(r["cluster"] == cluster, f"6g kernel E {desc}: held at cluster {r['cluster']}")
+            del k, v
+        held[(letter, shape)] = (desc, r)
+        torch.cuda.empty_cache()
+
+    names = {"A": ("cross_attention_decode_layered", "cross_decode.cu", "cross_decode.py:261"),
+             "B": ("encoder_attention", "encoder_attention.cu", "attention.py:91"),
+             "C": ("log_mel_raw", "log_mel.cu", "mel.py:149"),
+             "D": ("viterbi_batch", "viterbi.cu", "viterbi_pallas.py:101"),
+             "E": ("self_attention_decode_ancestry_layered", "self_decode.cu", "self_decode.py:198")}
+    entries = []
+    for (run, letter, shape), n in launches.items():
+        if (run == "auto") == (letter == "A"):
+            continue
+        name, source, replaces = names[letter]
+        desc, r = held[(letter, shape)]
+        entries.append({"name": f"{name} (the CLI flow, 6f --device {run}: {desc})",
+                        "route": "cuda", "source": f"whisper_nemo_tpu_torch/csrc/{source}",
+                        "replaces": f"whisper_nemo_tpu/ops/{replaces}", "launches": n, **r})
+    return entries
+
+
 def titanet_flops_per_frame(dims) -> float:
     """Multiply-adds x 2 of TitaNet's convs and pooling GEMMs per frame."""
     c = dims.filters
@@ -2278,6 +2908,7 @@ def main() -> int:
     phase_sequential_parity(args.seed)
     phase_widths_parity(args.seed)
     phase_diar_parity(args.seed)
+    phase_flow_parity(args.seed)
     main_run = phase_main_path(args.seed)
     phase_stage_times(main_run, a, e)
     phase_align_stage_times(main_run, d["a"])
@@ -2285,6 +2916,7 @@ def main() -> int:
     phase_sequential_stage_times(main_run, seq, c)
     default = phase_default_main(args.seed)
     phase_diar_main(args.seed)
+    flow_entries = phase_flow_kernels(phase_flow_main(args.seed, smi), args.seed)
 
     import torch
 
@@ -2345,6 +2977,9 @@ def main() -> int:
          "route": "cuda", "source": "whisper_nemo_tpu_torch/csrc/self_decode.cu",
          "replaces": "whisper_nemo_tpu/ops/self_decode.py:198",
          "launches": seq["timed"]["launches"][3], **s3["E bfloat16"]},
+        # the CLI flow at full width (6f): each kernel at each shape the flow launched it at
+        # (6g), with its launches there
+        *flow_entries,
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

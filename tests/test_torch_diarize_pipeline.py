@@ -16,11 +16,12 @@ import pytest
 import torch
 
 import whisper_nemo_tpu.diarize.clustering as jax_cl
+import whisper_nemo_tpu_torch.audio.decode as port_decode
 import whisper_nemo_tpu_torch.diarize.clustering as cl
 from chip_smoke import same_partition, voices
 from test_torch_diarize_models import _one_blas_thread  # noqa: F401  (autouse)
 from test_torch_diarize_models import MARBLENET, MSDD, TITANET, _seeded_tree
-from test_torch_slice import _one_torch_thread  # noqa: F401  (autouse)
+from test_torch_slice import _one_torch_thread, built_decoder, no_libav  # noqa: F401  (autouse; fixtures)
 from whisper_nemo_tpu import config as jax_config
 from whisper_nemo_tpu.audio import write_wav
 from whisper_nemo_tpu.diarize import pipeline as jax_pipeline
@@ -131,9 +132,12 @@ def _configs(tmp):
 
 
 @pytest.fixture(scope="module")
-def model_dir(tmp_path_factory):
+def model_dir(tmp_path_factory, built_decoder):
     """$WNT_MODEL_DIR holding tiny titanet_large.npz and
-    diar_msdd_telephonic.npz saved by the JAX package (energy VAD)."""
+    diar_msdd_telephonic.npz saved by the JAX package (energy VAD). Its
+    tests decode a .wav through ``audio.decode_audio``, which first loads
+    (and may build) the libav decoder: ``built_decoder`` builds it under
+    its lock."""
     tmp = tmp_path_factory.mktemp("diar_models")
     save_params(str(tmp / "titanet_large.npz"),
                 _seeded_tree(jax_titanet.init_titanet_params, TITANET, seed=11))
@@ -220,9 +224,10 @@ def test_marblenet_vad_probs_match_jax(model_dir, tmp_path, monkeypatch):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
-def test_what_is_not_ported_is_refused(tmp_path, monkeypatch):
+def test_what_is_not_ported_is_refused(tmp_path, monkeypatch, no_libav):
     """The pyannote VAD and ECAPA-TDNN raise naming the ROADMAP item where
-    the JAX package would take them, and a non-WAV manifest names libav."""
+    the JAX package would take them; where the libav decoder cannot load
+    (as on the card), a non-WAV manifest raises naming libav."""
     monkeypatch.setenv("WNT_MODEL_DIR", str(tmp_path))
     _, pcfg = _configs(tmp_path)
     (tmp_path / "pyannote_segmentation.npz").write_bytes(b"")
@@ -234,5 +239,5 @@ def test_what_is_not_ported_is_refused(tmp_path, monkeypatch):
         NeuralDiarizer(pcfg, device="cpu")
     _, pcfg = _configs(tmp_path)
     config.write_manifest(pcfg.diarizer.manifest_filepath, str(tmp_path / "call.opus"))
-    with pytest.raises(NotImplementedError, match="libav.*ROADMAP.md queue 1, item 3"):
+    with pytest.raises(port_decode.AudioDecodeError, match="libav"):
         NeuralDiarizer(pcfg, device="cpu").diarize()

@@ -8,10 +8,12 @@ CPU: greedy decode over the einsum form of the int8 cross-KV, which has
 the same quantization as the port's decode layout.
 """
 
+import fcntl
 import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -170,26 +172,67 @@ def test_speech_timestamps_match_jax(seconds):
     assert get_speech_timestamps(audio, device="cpu") == jax_speech_timestamps(audio)
 
 
-def test_facade_refuses_what_the_port_lacks():
-    """A path argument (the audio decoder is not ported) and device
-    "auto" raise instead of running something else."""
+@pytest.fixture(scope="session")
+def built_decoder():
+    """Whether the port's libav decoder loads, built at most once here.
+    ``make`` writes the library in place into the port's
+    ``audio/native``; a lock in the temp directory keeps test workers
+    from building it at once (one could load the other's half-written
+    file). Every test whose decode may reach the library takes this
+    fixture first."""
+    import whisper_nemo_tpu_torch.audio.decode as port_decode
+
+    with open(pathlib.Path(tempfile.gettempdir()) / "wnt_torch_audio_build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return port_decode.native_decoder_available()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+@pytest.fixture
+def no_libav(monkeypatch):
+    """The port's audio decoder as on a host without libav (the card):
+    its library does not load."""
+    import whisper_nemo_tpu_torch.audio.decode as port_decode
+
+    def unloadable():
+        raise OSError("libavformat.so: cannot open shared object file")
+
+    monkeypatch.setattr(port_decode, "_load_library", unloadable)
+
+
+def test_facade_refuses_what_the_port_lacks(tmp_path, no_libav):
+    """Device "auto" raises instead of picking a device. A path decodes
+    through ``audio.decode_audio``: without libav (as on the card) a PCM
+    WAV reads and a compressed format raises naming libav, on both
+    facade calls."""
+    import whisper_nemo_tpu_torch.audio.decode as port_decode
+    from whisper_nemo_tpu_torch.asr.faster_whisper_api import _waveform
+    from whisper_nemo_tpu_torch.audio import read_wav, write_wav
+
     model = WhisperModel(
         "tiny.en", device="cpu", compute_type="int8",
         params=params_from_jax(jw.init_whisper_params(jax.random.PRNGKey(0), jw.WhisperDims(*DIMS))),
         dims=WhisperDims(*DIMS), tokenizer=WhisperTokenizer.byte_fallback(multilingual=False),
     )
     pipeline = BatchedInferencePipeline(model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.transcribe("speech.wav", language="en")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.transcribe(pathlib.Path("speech.opus"))
+    (tmp_path / "speech.opus").write_bytes(b"OggS")
+    with pytest.raises(port_decode.AudioDecodeError, match="libav"):
+        pipeline.transcribe(str(tmp_path / "speech.opus"), language="en")
+    with pytest.raises(port_decode.AudioDecodeError, match="libav"):
+        model.transcribe(tmp_path / "speech.opus")
+    wave = speechlike(2.0, 0)
+    write_wav(str(tmp_path / "speech.wav"), wave)
+    assert np.array_equal(_waveform(tmp_path / "speech.wav"), read_wav(str(tmp_path / "speech.wav"))[0])
     with pytest.raises(ValueError, match="explicit"):
         WhisperModel("tiny.en", device="auto")
 
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports every module of the port and loads
-    neither jax nor the JAX package."""
+    neither jax, the JAX package nor nltk (``post/punkt.py`` is the port's
+    copy of the Punkt predicate it needs)."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "whisper_nemo_tpu_torch").rglob("*.py")
@@ -200,11 +243,16 @@ def test_port_imports_no_jax():
             "whisper_nemo_tpu_torch.diarize.clustering", "whisper_nemo_tpu_torch.models.msdd",
             "whisper_nemo_tpu_torch.models.titanet", "whisper_nemo_tpu_torch.models.marblenet",
             "whisper_nemo_tpu_torch.models.conv_asr", "whisper_nemo_tpu_torch.ops.features",
-            "whisper_nemo_tpu_torch.config", "whisper_nemo_tpu_torch.audio.wav"} <= set(modules)
+            "whisper_nemo_tpu_torch.config", "whisper_nemo_tpu_torch.audio.wav",
+            "whisper_nemo_tpu_torch.audio.decode", "whisper_nemo_tpu_torch.post.punkt",
+            "whisper_nemo_tpu_torch.post.speaker_map", "whisper_nemo_tpu_torch.models.punctuation",
+            "whisper_nemo_tpu_torch.cli.flow", "whisper_nemo_tpu_torch.cli.__main__",
+            "whisper_nemo_tpu_torch.compat.helpers", "whisper_nemo_tpu_torch.utils.logging"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'whisper_nemo_tpu'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'whisper_nemo_tpu', 'nltk'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -227,6 +275,9 @@ def test_port_sources_name_no_jax():
     "text/tokenizer.py", "text/languages.py", "vad/binarize.py", "align/text.py",
     "align/uroman.py", "align/uroman_ext.py", "align/pinyin_data.py", "config.py",
     "diarize/rttm.py", "diarize/segments.py", "diarize/metrics.py", "audio/wav.py",
+    "audio/__init__.py", "audio/decode.py", "utils/__init__.py", "utils/cleanup.py",
+    "utils/logging.py", "post/__init__.py", "post/punctuate.py", "post/writers.py",
+    "post/merge.py", "compat/__init__.py", "compat/helpers.py",
 ])
 def test_carried_copies_match_the_jax_package(name):
     """The jax-free host modules the port carries are the JAX package's,
@@ -237,4 +288,40 @@ def test_carried_copies_match_the_jax_package(name):
                     (REPO / "whisper_nemo_tpu" / name).read_text())
     note = re.compile(r"\nA copy of ``whisper_nemo_tpu/[^`]+``, carried so that the\n"
                       r"port imports nothing of the JAX package\.\n\n")
-    assert note.sub("\n", ours, count=1) == theirs
+    # a module with no docstring, or a one-line one, carries the note as a comment
+    comment = re.compile(r"(?m)^# A copy of ``whisper_nemo_tpu/[^`]+``, carried so that the\n"
+                         r"# port imports nothing of the JAX package\.\n")
+    assert comment.sub("", note.sub("\n", ours, count=1), count=1) == theirs
+
+
+@pytest.mark.parametrize("name", ["decoder.cc", "Makefile"])
+def test_native_decoder_sources_are_byte_copies(name):
+    """The libav decoder the port builds into its own audio/native."""
+    native = pathlib.Path("audio") / "native" / name
+    assert (REPO / "whisper_nemo_tpu_torch" / native).read_bytes() == (
+        REPO / "whisper_nemo_tpu" / native).read_bytes()
+
+
+def test_speaker_map_differs_only_in_its_nltk_lines():
+    """The port's post/speaker_map.py is the JAX module's but for its copy
+    note and the two lines that reached nltk: the import and the Punkt
+    predicate, both now ``post/punkt.py``'s."""
+    import difflib
+
+    ours = (REPO / "whisper_nemo_tpu_torch/post/speaker_map.py").read_text().splitlines()
+    theirs = (REPO / "whisper_nemo_tpu/post/speaker_map.py").read_text().splitlines()
+    changed = [line for line in difflib.unified_diff(theirs, ours, lineterm="", n=0)
+               if line[:1] in "+-" and not line.startswith(("+++", "---"))]
+    assert [line for line in changed if line.startswith("-")] == [
+        "-import nltk",
+        "-    has_break = nltk.tokenize.PunktSentenceTokenizer().text_contains_sentbreak",
+    ]
+    assert [line for line in changed if line.startswith("+")] == [
+        "+",
+        "+A copy of ``whisper_nemo_tpu/post/speaker_map.py``, carried so that the",
+        "+port imports nothing of the JAX package, and not nltk either: the",
+        "+sentence-break predicate is ``post/punkt.py``'s copy of an untrained",
+        "+Punkt tokenizer's.",
+        "+from .punkt import text_contains_sentbreak",
+        "+    has_break = text_contains_sentbreak",
+    ]

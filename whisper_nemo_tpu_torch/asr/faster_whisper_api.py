@@ -12,7 +12,8 @@ calls the CLI makes:
 runs greedy decode. ``model.transcribe`` is the sequential path
 (timestamps, the temperature ladder, conditioning on the previous text).
 ``word_timestamps=True`` aligns each segment's words with the port's CTC
-aligner. Audio is a 16 kHz waveform: the audio decoder is not ported yet.
+aligner. Audio is a 16 kHz waveform or a path, decoded by
+``audio.decode_audio``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..engine.decode import ROADMAP_NOTE
+from ..audio import decode_audio
 from ..engine.transcribe import Segment, TranscriptionInfo, WhisperEngine
 from ..text.languages import langs_to_iso
 
@@ -70,9 +71,10 @@ def _attach_word_timestamps(
 
 
 def _waveform(audio) -> np.ndarray:
+    """A waveform as f32, or a path decoded to 16 kHz mono (faster-whisper
+    accepts both)."""
     if isinstance(audio, (str, os.PathLike)):
-        raise NotImplementedError(f"decoding an audio file is {ROADMAP_NOTE} (item 3); pass a"
-                                  " 16 kHz float32 waveform")
+        return decode_audio(os.fspath(audio))
     return np.asarray(audio, np.float32)
 
 
@@ -103,7 +105,7 @@ class WhisperModel:
 
     def transcribe(
         self,
-        audio: np.ndarray,
+        audio: str | os.PathLike | np.ndarray,
         language: Optional[str] = None,
         task: str = "transcribe",
         beam_size: int = 5,
@@ -151,7 +153,7 @@ class BatchedInferencePipeline:
 
     def transcribe(
         self,
-        audio: np.ndarray,
+        audio: str | os.PathLike | np.ndarray,
         language: Optional[str] = None,
         task: str = "transcribe",
         beam_size: int = 5,

@@ -9,8 +9,8 @@ the serverless handler reads,
     result["text"], result["segments"][i]["start"/"end"/"text"/
     "no_speech_prob"], result["language"], result["duration"]
 
-over the sequential path. Audio is a 16 kHz waveform: the audio decoder
-is not ported yet.
+over the sequential path. Audio is a 16 kHz waveform or a path, decoded
+by ``audio.decode_audio``.
 """
 
 from __future__ import annotations

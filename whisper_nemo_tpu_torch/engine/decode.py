@@ -54,7 +54,6 @@ class DecodeOptions:
     blank_token: int = 220  # " " for the standard GPT-2 vocab
 
 
-ROADMAP_NOTE = "not ported yet; see ROADMAP.md, queue 1"
 # the first generated timestamp is at most 1.0 s (whisper's default)
 MAX_INITIAL_TIMESTAMP_INDEX = 50
 
