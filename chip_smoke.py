@@ -4,9 +4,9 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, one line each:
-  1. device: name, power limit, versions, whether libav, nltk and
-     tokenizers are present (the port needs none of them); fails without
-     CUDA;
+  1. device: name, power limit, versions, whether libav, nltk,
+     tokenizers, pydantic and aiohttp are present (the port needs none of
+     them); fails without CUDA;
   2. build: the port's CUDA kernels from whisper_nemo_tpu_torch/csrc, one
      nvcc per source, all started together;
   3. kernel A (cross-attention decode) against its plain version at
@@ -130,13 +130,30 @@ Phases, one line each:
      wrapper chose (at the largest visible length with it), A at the
      int8 cross-KV of 8 windows at beam 5; the flow's JSON entries come
      from these, one a shape, with its launches in 6f;
+  5g. serving parity: the window scheduler (batch 4, timestamped, buckets
+     1, 2 and 4 each dispatched, the token limits) and the handler's jobs
+     (full, transcription only, the openai facade's branch, the NDJSON
+     stream, and /run and /stream over aiohttp on loopback where it
+     imports) at small dims, int8, on the GPU against the CPU: each
+     dispatch's windows equal, each window's tokens equal or parted at a
+     tie, the full and transcription-only responses equal apart from
+     processing_time (from the GPU's transcription where a window parted
+     at a tie), every job successful;
+  6h. the serverless handler at full width: load_models() with its
+     defaults (Whisper large-v2 int8, batch 16, the general-preset
+     diarizer on TitaNet-large), the scheduler rebuilt with bench.py's
+     token limits (64-96), warmup, single-window latency, one 10-minute
+     job alone and four together, with walls, dispatches by pad size,
+     peak memory and each kernel's launches by shape;
+  6i. kernels A, B and C against their plain versions at every shape 6h
+     launched them at (H=20), SDPA timed beside B;
   7. the card's name and power limit, the kernels' JSON line, and last
      {"ok": true, "device": {...}}.
 Any phase that fails raises, and the script exits non-zero without the
 last line. Weights are random from --seed unless $WNT_MODEL_DIR holds
 medium.en.npz, ctc_aligner.npz and (for 6e) the diarization checkpoints;
-phases 5f and 6f make their own model directories, with a vocabulary
-whose tokens are words (``word_vocab``).
+phases 5f, 5g, 6f and 6h make their own model directories, with a
+vocabulary whose tokens are words (``word_vocab``).
 """
 
 from __future__ import annotations
@@ -146,6 +163,7 @@ import collections
 import concurrent.futures
 import contextlib
 import ctypes.util
+import dataclasses
 import functools
 import importlib.util
 import json
@@ -155,6 +173,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -355,12 +374,15 @@ def phase_device():
     # PCM WAV only); the JAX package's punctuation reads nltk and
     # tokenizers, which the port does not need
     libav = ctypes.util.find_library("avformat") or "absent"
-    present = {name: importlib.util.find_spec(name) is not None for name in ("nltk", "tokenizers")}
+    present = {name: importlib.util.find_spec(name) is not None
+               for name in ("nltk", "tokenizers", "pydantic", "aiohttp")}
     print(
         f"[1 device] {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | devices {torch.cuda.device_count()} | regex {has_regex}"
         f" | libavformat {libav} (without it the port's decoder reads PCM WAV only)"
         f" | nltk {present['nltk']}, tokenizers {present['tokenizers']} (the port needs neither)"
+        f" | pydantic {present['pydantic']}, aiohttp {present['aiohttp']} (the serving layer"
+        " needs neither; aiohttp only for its HTTP front end and downloads)"
     )
     return smi
 
@@ -465,7 +487,8 @@ def kernel_a_case(cd, q, kv, k_scale, v_scale, k_len, bits, beam, reps) -> dict:
         cd.fold_q(q, k_scale), kv, i % L, k_len, bits, beam) * v_scale, max(reps // 8, 4))
     c = cd._cluster_size(W, q.shape[2], kv.shape[-1], cd._sms(q.device.index))
     return {"max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "bound_ms": kernel_a_bound_ms(W, beam, bits, T=k_len), "bound_by": "bytes",
+            "bound_ms": kernel_a_bound_ms(W, beam, bits, H=q.shape[2], D=q.shape[3], T=k_len),
+            "bound_by": "bytes",
             "library_ms": None, "cluster": c, "ctas": c * W * q.shape[2]}
 
 
@@ -2206,9 +2229,10 @@ SRT_CUE = re.compile(r"(\d+)\n(\d\d):(\d\d):(\d\d),(\d\d\d) --> (\d\d):(\d\d):(\
                      r"Speaker (\d+): (.*)")
 
 
-def word_vocab() -> dict:
-    """A Whisper ``vocab.json`` for the ``.en`` models whose tokens are
-    words: the 256 byte symbols, then for each id up to 50,255 a
+def word_vocab(multilingual: bool = False) -> dict:
+    """A Whisper ``vocab.json`` whose tokens are words: the 256 byte
+    symbols, then for each id up to 50,255 (the ``.en`` models) or 50,256
+    (the multilingual ones, whose specials start one id later) a
     letters-only name, every 5th capitalised, every 7th ending in "." and
     every 11th in ",". Random weights decode tokens of every id, which the
     byte-fallback tokenizer turns into almost no text; this vocabulary
@@ -2216,7 +2240,7 @@ def word_vocab() -> dict:
     from whisper_nemo_tpu_torch.text.tokenizer import bytes_to_unicode
 
     vocab = {c: b for b, c in bytes_to_unicode().items()}
-    for i in range(256, 50256):
+    for i in range(256, 50257 if multilingual else 50256):
         word, v = "", i
         while True:
             v, r = divmod(v, 26)
@@ -2228,9 +2252,9 @@ def word_vocab() -> dict:
     return vocab
 
 
-def write_word_vocab(directory: str) -> None:
+def write_word_vocab(directory: str, multilingual: bool = False) -> None:
     with open(os.path.join(directory, "vocab.json"), "w") as f:
-        json.dump(word_vocab(), f)
+        json.dump(word_vocab(multilingual), f)
     with open(os.path.join(directory, "merges.txt"), "w") as f:
         f.write("#version: 0.2\n")
 
@@ -2742,6 +2766,50 @@ def phase_flow_main(seed: int, smi: str) -> dict:
     return {"auto": auto, "cuda": cuda}
 
 
+def hold_launched_shape(letter: str, shape: tuple, g, seed: int, where: str, tag: str) -> tuple:
+    """Kernel A, B or C against its plain version, timed, on seeded inputs
+    of a launch's recorded ``shape`` (``recording_launches``' key), within
+    BOUND_A, BOUND_B or BOUND_C and BOUND_C_F64. Prints one line under
+    ``[{tag} kernel X]`` with ``where`` it was launched; returns (a
+    description of the shape, the case's numbers)."""
+    import torch
+
+    from whisper_nemo_tpu_torch.ops import attention as at
+    from whisper_nemo_tpu_torch.ops import cross_decode as cd
+
+    dev = torch.device("cuda")
+    if letter == "A":
+        dtype, (L, W, H, rows, kp), k_len, bits, beam = shape
+        D = rows // 2 if bits == 8 else rows
+        kv = torch.randint(-127, 128, (L, W, H, rows, kp), device=dev, generator=g,
+                           dtype=torch.int8)
+        k_scale = 0.02 + 0.02 * torch.rand((H, D), device=dev, generator=g)
+        v_scale = (0.5 + torch.rand((H, D), device=dev, generator=g)) / 127
+        q = torch.randn((W * beam, 1, H, D), device=dev, generator=g).to(dtype)
+        r = kernel_a_case(cd, q, kv, k_scale, v_scale, k_len, bits, beam, 48)
+        desc = f"{str(dtype)[6:]} q, W={W} H={H} beam {beam} bits {bits} k_len {k_len}"
+        print(f"[{tag} kernel A] {desc} ({where}): {fmt_a(r)}")
+        check(r["max_abs_err"] <= BOUND_A, f"{tag} kernel A {desc}: max|err|"
+              f" {r['max_abs_err']} > {BOUND_A}")
+        del kv
+    elif letter == "B":
+        dtype, (B, T, H, D) = shape
+        r = kernel_b_case(at, B, T, H, dtype, g, D)
+        desc = f"{str(dtype)[6:]} B={B} T={T} H={H} D={D}"
+        print(f"[{tag} kernel B] {desc} ({where}): {fmt_b(r)}")
+        check(r["max_abs_err"] <= BOUND_B, f"{tag} kernel B {desc}: max|err|"
+              f" {r['max_abs_err']} > {BOUND_B}")
+    else:
+        (n, samples), n_mels = shape
+        waves = torch.from_numpy(speechlike(n * samples / SR, seed).reshape(n, samples))
+        desc = f"batch of {n}"
+        r = kernel_c_case(waves.to(dev), n_mels, f"{desc} ({where})", True,
+                          tag=f"{tag} kernel C")
+        desc = f"{n_mels} mels, {desc}"
+    torch.cuda.empty_cache()
+    return desc, r
+
+
 def phase_flow_kernels(runs: dict, seed: int) -> list:
     """6g: kernels A to E held against their plain versions at every shape
     the two in-process runs of 6f launched them at (``recording_launches``),
@@ -2757,7 +2825,6 @@ def phase_flow_kernels(runs: dict, seed: int) -> list:
     import torch
 
     from whisper_nemo_tpu_torch.ops import attention as at
-    from whisper_nemo_tpu_torch.ops import cross_decode as cd
     from whisper_nemo_tpu_torch.ops import self_decode as sd
 
     dev = torch.device("cuda")
@@ -2785,34 +2852,8 @@ def phase_flow_kernels(runs: dict, seed: int) -> list:
 
     held = {}
     for letter, shape in sorted({k[1:] for k in launches}, key=str):
-        if letter == "A":
-            dtype, (L, W, H, rows, kp), k_len, bits, beam = shape
-            D = rows // 2 if bits == 8 else rows
-            kv = torch.randint(-127, 128, (L, W, H, rows, kp), device=dev, generator=g,
-                               dtype=torch.int8)
-            k_scale = 0.02 + 0.02 * torch.rand((H, D), device=dev, generator=g)
-            v_scale = (0.5 + torch.rand((H, D), device=dev, generator=g)) / 127
-            q = torch.randn((W * beam, 1, H, D), device=dev, generator=g).to(dtype)
-            r = kernel_a_case(cd, q, kv, k_scale, v_scale, k_len, bits, beam, 48)
-            desc = f"{str(dtype)[6:]} q, W={W} beam {beam} bits {bits} k_len {k_len}"
-            print(f"[6g kernel A] {desc} ({where(letter, shape)}): {fmt_a(r)}")
-            check(r["max_abs_err"] <= BOUND_A, f"6g kernel A {desc}: max|err|"
-                  f" {r['max_abs_err']} > {BOUND_A}")
-            del kv
-        elif letter == "B":
-            dtype, (B, T, H, D) = shape
-            r = kernel_b_case(at, B, T, H, dtype, g, D)
-            desc = f"{str(dtype)[6:]} B={B} T={T} H={H} D={D}"
-            print(f"[6g kernel B] {desc} ({where(letter, shape)}): {fmt_b(r)}")
-            check(r["max_abs_err"] <= BOUND_B, f"6g kernel B {desc}: max|err|"
-                  f" {r['max_abs_err']} > {BOUND_B}")
-        elif letter == "C":
-            (n, samples), n_mels = shape
-            waves = torch.from_numpy(speechlike(n * samples / SR, seed + 74).reshape(n, samples))
-            desc = f"batch of {n}"
-            r = kernel_c_case(waves.to(dev), n_mels, f"{desc} ({where(letter, shape)})", True,
-                              tag="6g kernel C")
-            desc = f"{n_mels} mels, {desc}"
+        if letter in "ABC":
+            desc, r = hold_launched_shape(letter, shape, g, seed + 74, where(letter, shape), "6g")
         elif letter == "D":
             rows, t, n_states = shape
             check(n_states % 2 == 1, f"6g kernel D: a trellis of {n_states} states")
@@ -2842,20 +2883,697 @@ def phase_flow_kernels(runs: dict, seed: int) -> list:
         held[(letter, shape)] = (desc, r)
         torch.cuda.empty_cache()
 
-    names = {"A": ("cross_attention_decode_layered", "cross_decode.cu", "cross_decode.py:261"),
-             "B": ("encoder_attention", "encoder_attention.cu", "attention.py:91"),
-             "C": ("log_mel_raw", "log_mel.cu", "mel.py:149"),
-             "D": ("viterbi_batch", "viterbi.cu", "viterbi_pallas.py:101"),
-             "E": ("self_attention_decode_ancestry_layered", "self_decode.cu", "self_decode.py:198")}
     entries = []
     for (run, letter, shape), n in launches.items():
         if (run == "auto") == (letter == "A"):
             continue
-        name, source, replaces = names[letter]
         desc, r = held[(letter, shape)]
-        entries.append({"name": f"{name} (the CLI flow, 6f --device {run}: {desc})",
-                        "route": "cuda", "source": f"whisper_nemo_tpu_torch/csrc/{source}",
-                        "replaces": f"whisper_nemo_tpu/ops/{replaces}", "launches": n, **r})
+        entries.append(kernel_entry(letter, f"the CLI flow, 6f --device {run}: {desc}", n, r))
+    return entries
+
+
+# each kernel's wrapper, source and the TPU kernel it replaces
+KERNELS = {"A": ("cross_attention_decode_layered", "cross_decode.cu", "cross_decode.py:261"),
+           "B": ("encoder_attention", "encoder_attention.cu", "attention.py:91"),
+           "C": ("log_mel_raw", "log_mel.cu", "mel.py:149"),
+           "D": ("viterbi_batch", "viterbi.cu", "viterbi_pallas.py:101"),
+           "E": ("self_attention_decode_ancestry_layered", "self_decode.cu", "self_decode.py:198")}
+
+
+def kernel_entry(letter: str, what: str, launches: int, r: dict) -> dict:
+    """One entry of the kernels' JSON line: kernel ``letter`` held at the
+    shape ``what`` names (``r``: its numbers), with its ``launches``."""
+    name, source, replaces = KERNELS[letter]
+    return {"name": f"{name} ({what})", "route": "cuda",
+            "source": f"whisper_nemo_tpu_torch/csrc/{source}",
+            "replaces": f"whisper_nemo_tpu/ops/{replaces}", "launches": launches, **r}
+
+
+# -- serving (phases 5g, 6h and 6i) ------------------------------------------
+
+# 5g: multilingual small dims (head dim 64), the handler at int8 (kernel A),
+# batches of 4 padded to buckets 1, 2 and 4, and its token limits
+SERVE_DIMS = (80, 1500, 128, 2, 2, 51865, 64, 128, 2, 2)
+SERVE_MIN_NEW, SERVE_MAX_NEW = 4, 24
+# 6h: bench.py's token limits (random weights never emit EOT) and a job's audio
+HANDLER_MIN_NEW, HANDLER_MAX_NEW = 64, 96
+JOB_SECONDS = 600.0
+# 5g: a segment's confidence (1 - its no-speech probability) GPU against CPU,
+# both at bf16 activations, their products summed in other orders
+CONF_TOL = 2e-3
+SERVE_JOB = {"audio_url": "https://example.com/call.wav", "language": "en", "max_speakers": 3}
+
+
+def same_response(got: dict, want: dict, tol: float) -> None:
+    """Two handler responses equal apart from ``processing_time``, with
+    each segment's ``confidence`` within ``tol``. Each formatted
+    transcript must be what the formatter writes from its own segments,
+    which are equal apart from those confidences, and the mean confidence
+    within 100·tol percent (and its rounding). Raises AssertionError."""
+    from whisper_nemo_tpu_torch.post import create_readable_transcript_improved
+
+    got, want = dict(got), dict(want)
+    assert got.pop("processing_time") > 0 and want.pop("processing_time") > 0
+    assert set(got) == set(want), (sorted(got), sorted(want))
+    segs, want_segs = got.pop("segments_detailles", None), want.pop("segments_detailles", None)
+    if want_segs is not None:
+        assert len(segs) == len(want_segs) > 0, (len(segs), len(want_segs))
+        for s, w in zip(segs, want_segs):
+            assert abs(s["confidence"] - w["confidence"]) < tol, (s, w)
+            assert {**s, "confidence": 0} == {**w, "confidence": 0}, (s, w)
+        mixed = [{**w, "confidence": s["confidence"]} for s, w in zip(segs, want_segs)]
+        assert got.pop("transcription_formatee") == create_readable_transcript_improved(mixed)
+        assert want.pop("transcription_formatee") == create_readable_transcript_improved(want_segs)
+        stats, want_stats = dict(got.pop("statistiques")), dict(want.pop("statistiques"))
+        mean = [float(s.pop("confiance_moyenne").rstrip("%")) for s in (stats, want_stats)]
+        assert abs(mean[0] - mean[1]) <= 100 * tol + 0.05, mean
+        assert stats == want_stats, (stats, want_stats)
+    assert got == want, (got, want)
+
+
+def record_dispatches(sched, log: list) -> None:
+    """Wraps ``sched``'s batch processing: each dispatch appends to
+    ``log`` its windows' starts and audio, its pad size (bucket), and from
+    its decode the steps, tokens, lengths and prompt length."""
+    process, decode = sched._process, sched.engine._decode_batch
+    inside = threading.local()  # the dispatch this thread is processing
+
+    def spy_decode(*args, **kwargs):
+        out = decode(*args, **kwargs)
+        entry = getattr(inside, "entry", None)
+        if entry is not None:  # not the openai facade's or the stream's decode
+            entry.update(tokens=out[0].cpu(), lengths=out[1].cpu(), n_prompt=out[4],
+                         steps=out[5])
+        return out
+
+    def spy(items, loaded=False):
+        inside.entry = {"starts": [round(it.start_s, 4) for it in items],
+                        "audio": [it.audio for it in items], "language": items[0].language,
+                        "bucket": sched._pad_target(len(items), loaded)}
+        log.append(inside.entry)
+        try:
+            return process(items, loaded=loaded)
+        finally:
+            inside.entry = None
+
+    sched._process = spy
+    sched.engine._decode_batch = spy_decode
+
+
+def served_step(engine, waves: np.ndarray, row: int, generated: list, suppress, language: str,
+                min_new: int) -> tuple:
+    """The port's decode rules at the token after ``generated`` in row
+    ``row`` of the batch ``waves`` (as the scheduler dispatched it: an
+    int8 cross-KV's scales are taken over the batch), teacher-forced
+    through one prefill on ``engine``: (the filtered f32 logits, the
+    logits before the timestamp rules' last one, which forces a timestamp
+    where the timestamps' total probability beats every text token's, and
+    that rule's margin: the timestamps' log-probability minus the best
+    text token's; None where the history leaves text masked)."""
+    import torch
+
+    from whisper_nemo_tpu_torch.engine.decode import _filter_logits, _static_filter
+    from whisper_nemo_tpu_torch.models.whisper import _vocab_logits
+    from whisper_nemo_tpu_torch.models.whisper_stacked import (
+        cross_kv_for_decode,
+        init_stacked_cache,
+        prefill_cache_stacked,
+    )
+    from whisper_nemo_tpu_torch.ops import mel
+
+    dev, dims = engine.device, engine.dims
+    prompt = engine._prompt(language, False, None)[0].tolist()
+    opts = engine._make_opts(without_timestamps=False, min_new_tokens=min_new)
+    n_prompt, pos = len(prompt), len(prompt) + len(generated)
+    b = waves.shape[0]
+    with torch.inference_mode():
+        feats = engine.encode_windows(mel.log_mel_spectrogram_batch(
+            torch.from_numpy(waves).to(dev), dims.n_mels))
+        ckv = cross_kv_for_decode(engine.params, feats.to(engine.dtype), dims, engine.cross_kv_bits)
+        tokens = torch.tensor([prompt + list(generated)] * b, device=dev)
+        cache = init_stacked_cache(b, dims, engine.dtype, 128, dev)
+        x, _ = prefill_cache_stacked(engine.params, tokens, cache, ckv, dims, engine.dtype)
+        logits = _vocab_logits(engine.params["decoder"], x[:, -1])
+        history = torch.cat([tokens, tokens[:, :1]], dim=1)
+        static = _static_filter(suppress, opts, dev)
+        filt = _filter_logits(logits.clone(), static, history, pos, n_prompt, opts)[row].cpu()
+        plain = _filter_logits(logits.clone(), static, history, pos, n_prompt,
+                               dataclasses.replace(opts, without_timestamps=True))[row].cpu()
+    ts = opts.timestamp_begin
+    is_ts = torch.arange(filt.shape[0]) >= ts
+    step = len(generated)
+    lone = step >= 2 and generated[-1] >= ts and generated[-2] < ts
+    if step == 0 or lone or torch.isinf(plain[~is_ts]).all():
+        return filt, filt, None
+    # before the forcing rule: the text tokens as the other rules leave them
+    # (none of them masks text here), the timestamps as all rules do
+    before = torch.where(is_ts, filt, plain)
+    lp = torch.log_softmax(before, dim=-1)
+    margin = float(torch.logsumexp(lp[is_ts], 0) - lp[~is_ts].max())
+    return filt, before, margin
+
+
+def served_tie(engine, dispatch: dict, row: int, mine: list, other: list, suppress,
+               min_new: int) -> str:
+    """Why ``other`` (another device's tokens for window ``row`` of
+    ``dispatch``) may part from ``mine`` (this engine's): at the first
+    differing token, on this engine's logits over the shared history,
+    either both picks are open and within TIE_TOL of each other and of
+    the best, or the forcing rule's margin is within TIE_TOL (the devices
+    may force a timestamp or not) and the other's pick is within TIE_TOL
+    of the best of its kind. Raises SmokeFailure otherwise."""
+    import torch
+
+    eot = engine.tokenizer.eot
+    j = first_difference(mine, other, eot)
+    waves = np.zeros((dispatch["bucket"], len(dispatch["audio"][0])), np.float32)
+    waves[: len(dispatch["audio"])] = np.stack(dispatch["audio"])
+    filt, before, margin = served_step(engine, waves, row, mine[:j], suppress,
+                                       dispatch["language"], min_new)
+    a, b = (list(mine) + [eot])[j], (list(other) + [eot])[j]
+    ts = engine.tokenizer.timestamp_begin
+    top2 = torch.topk(filt, 2).values
+    gap, spread = float(filt[a] - filt[b]), float(top2[0] - top2[1])
+    if math.isfinite(gap) and max(gap, spread) < TIE_TOL:
+        return f"token {j}: logit gap {gap:.4f}, top-2 margin {spread:.4f}"
+    check(margin is not None and abs(margin) < TIE_TOL and math.isfinite(float(before[b])),
+          f"5g: window {row} at {dispatch['starts'][row]} s parts at token {j} ({a} against"
+          f" {b}) beyond the tie tolerance {TIE_TOL}: logit gap {gap}, top-2 margin {spread},"
+          f" the timestamp rule's margin {margin}")
+    kind = torch.arange(before.shape[0]) >= ts if b >= ts else torch.arange(before.shape[0]) < ts
+    best = float(before[kind].max())
+    check(best - float(before[b]) < TIE_TOL, f"5g: window {row} at {dispatch['starts'][row]} s:"
+          f" token {j} ({b}) is {best - float(before[b]):.4f} below the best of its kind")
+    return (f"token {j}: the timestamp rule's margin {margin:.4f}, the pick"
+            f" {best - float(before[b]):.4f} below the best of its kind")
+
+
+def serving_trees(directory: str, seed: int, titanet_dims) -> None:
+    """A seeded TitaNet tree of ``titanet_dims`` saved by the port as
+    ``titanet_large.npz`` (made on the CPU, so every device loads the same
+    one) and the multilingual word vocabulary, in ``directory``."""
+    import torch
+
+    from whisper_nemo_tpu_torch.engine.checkpoint import save_params
+    from whisper_nemo_tpu_torch.models import titanet
+
+    save_params(os.path.join(directory, "titanet_large.npz"), titanet.init_titanet_params(
+        titanet_dims, "cpu", torch.Generator().manual_seed(seed)))
+    write_word_vocab(directory, multilingual=True)
+
+
+def wire_handler(stack: contextlib.ExitStack, H, model, diarization, sched, wav: str,
+                 name: str) -> None:
+    """The handler module ``H`` on these models within ``stack``, its
+    download a fresh hard link to ``wav`` per job (the handler deletes what
+    it downloads; concurrent jobs must not delete each other's input)."""
+    async def fake_download(url):
+        path = f"{wav}.{os.getpid()}.{time.monotonic_ns()}.wav"
+        os.link(wav, path)
+        return path
+
+    for attr, value in (("whisper_model", model), ("diarization_pipeline", diarization),
+                        ("window_scheduler", sched), ("download_audio_file", fake_download),
+                        ("WHISPER_MODEL_NAME", name)):
+        stack.enter_context(patched(H, attr, value))
+
+
+async def serve_over_loopback(H, chunks) -> tuple:
+    """POST /run (a transcription-only ``SERVE_JOB``) and POST /stream (the
+    PCM of ``chunks()``) of the handler module ``H``, each over aiohttp's
+    test server on a loopback port; (the job's JSON, the stream's
+    bytes)."""
+    from aiohttp import web
+    from aiohttp.test_utils import TestClient, TestServer
+
+    async def run_route(request):
+        return web.json_response(await H.handler(await request.json()))
+
+    app = web.Application()
+    app.router.add_post("/run", run_route)
+    app.router.add_post("/stream", H.stream_route)
+    client = TestClient(TestServer(app, host="127.0.0.1"))
+    await client.start_server()
+    try:
+        job = await client.post("/run", json={"input": {**SERVE_JOB, "transcription_only": True}})
+        stream = await client.post("/stream?language=en", data=chunks())
+        check(job.status == stream.status == 200, f"5g: /run {job.status}, /stream {stream.status}")
+        return await job.json(), await stream.read()
+    finally:
+        await client.close()
+
+
+def phase_serving_parity(seed: int, devices=("cuda", "cpu")) -> None:
+    """5g: the serving layer at small dims (``SERVE_DIMS``, multilingual,
+    "int8": kernel A on the card) on ``devices[0]`` against ``devices[1]``,
+    one seeded tree on both. A ``WindowScheduler`` (batch 4, timestamped,
+    ``bucket_policy="always"``, the token limits SERVE_MIN_NEW and
+    SERVE_MAX_NEW) transcribes three requests in turn, sized so that
+    buckets 1, 2 and 4 are each dispatched; on a CUDA device the launches
+    of C (one a dispatch), B (one a dispatch and encoder layer) and A (one
+    a step and decoder layer) are held to the dispatches. Then the handler
+    (``serving.handler``, on the same scheduler, with the
+    ``"general"``-preset diarizer on a seeded small TitaNet saved as
+    ``titanet_large.npz`` and the word vocabulary in a temporary
+    $WNT_MODEL_DIR) runs a full job and a transcription-only one on 60 s
+    of three voices whose Laplacian has an eigengap above DIAR_GAP, the
+    download stubbed with a local WAV; then the openai facade's branch
+    (``WNT_SERVING_SCHEDULER=0``) and ``ndjson_lines`` on 3 s of s16 PCM;
+    then, where aiohttp imports, POST /run and /stream over its test
+    server on loopback (``serve_over_loopback``): /run must answer the
+    transcription-only job's response. Every job must succeed. Every dispatch must hold the same windows on
+    both devices and each window's tokens be equal, or part at a tie
+    (``served_tie``). A job whose windows' tokens are equal must give
+    responses equal apart from ``processing_time`` (``same_response``,
+    CONF_TOL); a job with a window parted at a tie is run again on
+    ``devices[1]`` from ``devices[0]``'s transcription, and those
+    responses must be equal. The facade's and the stream's outputs are
+    printed, equal or not, and held to their form."""
+    import asyncio
+    import importlib
+
+    import torch
+
+    from whisper_nemo_tpu_torch.asr.openai_api import OpenAIWhisperModel
+    from whisper_nemo_tpu_torch.audio import write_wav
+    from whisper_nemo_tpu_torch.diarize import SpeakerDiarizationPipeline, pipeline
+    from whisper_nemo_tpu_torch.engine.transcribe import WhisperEngine
+    from whisper_nemo_tpu_torch.models.whisper import WhisperDims, init_whisper_params
+    from whisper_nemo_tpu_torch.ops import attention, cross_decode, mel, self_decode
+    from whisper_nemo_tpu_torch.serving.scheduler import WindowScheduler
+    from whisper_nemo_tpu_torch.text.tokenizer import WhisperTokenizer
+
+    H = importlib.import_module("whisper_nemo_tpu_torch.serving.handler")
+    counters = (cross_decode.cross_attention_decode_layered, attention.encoder_attention,
+                mel.log_mel_raw, self_decode.self_attention_decode_ancestry_layered)
+    dims = WhisperDims(*SERVE_DIMS)
+    params = init_whisper_params(dims, "cpu", torch.Generator().manual_seed(seed + 90))
+    requests = [voices(s, seed + 91 + i, 3) for i, s in enumerate((20.0, 50.0, 110.0))]
+    rng = np.random.default_rng(seed + 95)
+    pcm = [(rng.standard_normal(SR) * 3000).astype("<i2").tobytes() for _ in range(3)]
+    runs = {}
+    with contextlib.ExitStack() as stack:
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        stack.enter_context(model_dir(tmp))
+        stack.enter_context(patched(pipeline, "_TITANET_LARGE", pipeline._TITANET_SMALL))
+        serving_trees(tmp, seed + 96, pipeline._TITANET_SMALL)
+        tok = WhisperTokenizer.from_dir(tmp)
+
+        probe = SpeakerDiarizationPipeline(device=devices[1]).diarizer
+        gaps = []
+        for i in range(DIAR_AUDIOS):
+            audio = voices(60.0, seed + 100 + i, 3)
+            stats = {}
+            probe.diarize_waveform(audio, max_speakers=SERVE_JOB["max_speakers"], stats=stats)
+            gaps.append(stats.get("eigengap", 0.0))
+            if gaps[-1] > DIAR_GAP:
+                break
+        check(gaps[-1] > DIAR_GAP, f"5g: no audio of {DIAR_AUDIOS} has an eigengap above"
+              f" {DIAR_GAP} (gaps {gaps}; choose another --seed)")
+        del probe
+        wav = os.path.join(tmp, "call.wav")
+        write_wav(wav, audio)
+
+        for dev in devices:
+            engine = WhisperEngine("tiny", "int8", device=dev, params=params, dims=dims,
+                                   tokenizer=tok)
+            sched = WindowScheduler(engine, batch_size=4, max_wait_s=0.2,
+                                    without_timestamps=False, min_new_tokens=SERVE_MIN_NEW,
+                                    max_new_tokens=SERVE_MAX_NEW, bucket_policy="always")
+            log = []
+            record_dispatches(sched, log)
+            run = runs[dev] = {"log": log, "engine": engine, "sched": sched}
+            cuda = torch.device(dev).type == "cuda"
+            try:
+                for fn in counters:
+                    fn.launches = 0
+                run["segments"] = [sched.transcribe(a, "en") for a in requests]
+                if cuda:
+                    torch.cuda.synchronize()
+                    a, b, c, e = (fn.launches for fn in counters)
+                    steps = sum(d["steps"] for d in log)
+                    check((a, b, c, e) == (steps * dims.n_text_layer, len(log) * dims.n_audio_layer,
+                                           len(log), 0),
+                          f"5g: launches A {a}, B {b}, C {c}, E {e} for {len(log)} dispatches of"
+                          f" {steps} steps")
+                    run["launches"] = (a, b, c)
+                run["sizing"] = len(log)
+                model = OpenAIWhisperModel.__new__(OpenAIWhisperModel)
+                model.engine, model.name = engine, "tiny"
+                diar = SpeakerDiarizationPipeline(device=dev)
+                stats = {}
+                waveform_call = diar.diarizer.diarize_waveform
+                diar.diarizer.diarize_waveform = lambda a, **kw: waveform_call(a, stats=stats, **kw)
+                transcripts = run["transcripts"] = []
+                for fn in counters:
+                    fn.launches = 0
+                with contextlib.ExitStack() as wired:
+                    wire_handler(wired, H, model, diar, sched, wav, "tiny")
+                    recording(wired, H, "_transcribe_via_scheduler", transcripts)
+                    marks = [len(log)]
+                    run["full"] = asyncio.run(H.handler({"id": "5g", "input": SERVE_JOB}))
+                    marks.append(len(log))
+                    run["transcription_only"] = asyncio.run(H.handler(
+                        {"input": {**SERVE_JOB, "transcription_only": True}}))
+                    marks.append(len(log))
+                    with env_var("WNT_SERVING_SCHEDULER", "0"):
+                        run["facade"] = asyncio.run(H.handler(
+                            {"input": {**SERVE_JOB, "transcription_only": True}}))
+
+                    async def chunks():
+                        for c in pcm:
+                            yield c
+
+                    async def stream():
+                        return [line async for line in H.ndjson_lines(chunks(), "s16", "en")]
+
+                    run["stream"] = asyncio.run(stream())
+                    run["marks"] = marks
+                    if importlib.util.find_spec("aiohttp") is not None:
+                        run["http"] = asyncio.run(serve_over_loopback(H, chunks))
+                run["eigengap"] = stats.get("eigengap", 0.0)
+                for name in ("full", "transcription_only", "facade"):
+                    check(run[name]["success"] is True, f"5g on {dev}: the {name} job failed:"
+                          f" {run[name].get('error')}")
+                streams = [b"".join(run["stream"])]
+                if "http" in run:
+                    job, streamed = run["http"]
+                    check(job["success"] is True, f"5g on {dev}: POST /run failed: {job}")
+                    same_response(job, run["transcription_only"], CONF_TOL)
+                    run["stream_http"] = streamed == streams[0]
+                    streams.append(streamed)
+                for text in streams:
+                    lines = [json.loads(line) for line in text.splitlines()]
+                    check(bool(lines) and lines[-1].get("done") is True and "text" in lines[-1]
+                          and all(set(w) == {"word", "start", "end"}
+                                  and w["end"] >= w["start"] >= 0 for w in lines[:-1]),
+                          f"5g on {dev}: malformed NDJSON {lines[-3:]}")
+                if cuda:
+                    check(all(fn.launches > 0 for fn in counters[:3]),
+                          f"5g: the handler's jobs launched A, B, C {[fn.launches for fn in counters[:3]]}")
+            finally:
+                sched.shutdown()
+
+        gpu, cpu = (runs[d] for d in devices)
+        check(gpu["eigengap"] > DIAR_GAP and cpu["eigengap"] > DIAR_GAP,
+              f"5g: eigengaps {gpu['eigengap']}, {cpu['eigengap']}")
+        check([(d["starts"], d["bucket"]) for d in gpu["log"]]
+              == [(d["starts"], d["bucket"]) for d in cpu["log"]],
+              "5g: the schedulers dispatched other batches on the two devices")
+        buckets = collections.Counter(d["bucket"] for d in gpu["log"][: gpu["sizing"]])
+        check({1, 2, 4} <= set(buckets), f"5g: the requests dispatched buckets {dict(buckets)},"
+              " not 1, 2 and 4 (choose another --seed)")
+        parted = set()
+        equal = ties = 0
+        notes = []
+        for k, (gd, cd_) in enumerate(zip(gpu["log"], cpu["log"])):
+            check(gd["n_prompt"] == cd_["n_prompt"], "5g: prompts differ")
+            for row in range(len(gd["starts"])):
+                n = gd["n_prompt"]
+                gt = gd["tokens"][row, n: n + int(gd["lengths"][row])].tolist()
+                ct = cd_["tokens"][row, n: n + int(cd_["lengths"][row])].tolist()
+                check(len(gt) >= SERVE_MIN_NEW and len(ct) >= SERVE_MIN_NEW,
+                      f"5g: a window decoded {len(gt)} / {len(ct)} tokens, under the minimum")
+                if gt == ct:
+                    equal += 1
+                    continue
+                ties += 1
+                parted.add(k)
+                notes.append(f"dispatch {k} window {row}: " + served_tie(
+                    cpu["engine"], cd_, row, ct, gt, cpu["sched"]._suppress, SERVE_MIN_NEW))
+        for note in notes:
+            print(f"  {note}")
+        held = []
+        for i, (name, (lo, hi)) in enumerate((("full", gpu["marks"][:2]),
+                                              ("transcription_only", gpu["marks"][1:]))):
+            if not parted & set(range(lo, hi)):
+                same_response(gpu[name], cpu[name], CONF_TOL)
+                held.append(f"{name} equal")
+                continue
+            # a window parted at a tie: the CPU's diarization and post-processing from the
+            # GPU's transcription
+            with contextlib.ExitStack() as wired:
+                model = OpenAIWhisperModel.__new__(OpenAIWhisperModel)
+                model.engine, model.name = cpu["engine"], "tiny"
+                wire_handler(wired, H, model, SpeakerDiarizationPipeline(device=devices[1]),
+                             None, wav, "tiny")
+                transcript = gpu["transcripts"][i][1]
+                wired.enter_context(patched(H, "_transcribe_via_scheduler",
+                                            lambda *a: transcript))
+                wired.enter_context(patched(H, "window_scheduler", cpu["sched"]))
+                again = asyncio.run(H.handler(
+                    {"input": {**SERVE_JOB, "transcription_only": name != "full"}}))
+            check(again["success"] is True, f"5g: the {name} job failed again: {again}")
+            same_response(gpu[name], again, CONF_TOL)
+            held.append(f"{name} equal from the GPU's transcription (a window parted at a tie)")
+    full = gpu["full"]
+    launches = (f"launches A {gpu['launches'][0]}, B {gpu['launches'][1]}, C {gpu['launches'][2]}"
+                if "launches" in gpu else "no CUDA device in this run")
+    print(f"[5g serving parity] WindowScheduler batch 4, \"always\", timestamped, tokens"
+          f" {SERVE_MIN_NEW}-{SERVE_MAX_NEW}, int8 at small dims, {devices[0]} against"
+          f" {devices[1]}: {len(gpu['log'])} dispatches (buckets {dict(sorted(buckets.items()))}"
+          f" for the three requests), {equal} windows token-equal, {ties} parted at a tie |"
+          f" {launches} over the three requests | handler: {'; '.join(held)} ("
+          f"{len(full['segments_detailles'])} segments, {full['statistiques']['speakers_detectes']}"
+          f" speakers, eigengaps {', '.join(f'{g:.4f}' for g in gaps)}) | facade branch"
+          f" {'equal' if _drop_time(gpu['facade']) == _drop_time(cpu['facade']) else 'differs'}"
+          f" | NDJSON over 3 s of s16 PCM: {len(gpu['stream'])} lines,"
+          f" {'equal' if gpu['stream'] == cpu['stream'] else 'differ'} between the devices |"
+          + (f" over aiohttp on loopback: /run as the direct job, /stream"
+             f" {'equal to' if gpu['stream_http'] else 'other than'} the direct call (the route"
+             " regroups the PCM as it arrives)"
+             if "http" in gpu else " aiohttp absent: /run and /stream not served"))
+
+
+def _drop_time(response: dict) -> dict:
+    return {k: v for k, v in response.items() if k != "processing_time"}
+
+
+def phase_serving_main(seed: int, smi: str) -> dict:
+    """6h: the serverless handler at full width, its defaults: a temporary
+    $WNT_MODEL_DIR holds a seeded TitaNet-large tree and the multilingual
+    word vocabulary; ``serving.handler.load_models(warm=False)`` loads
+    Whisper large-v2 at ``WNT_SERVING_COMPUTE``'s default, int8 (int8
+    linears, the int8 cross-KV: kernel A), a seeded random init on the
+    card, and the ``"general"``-preset diarizer; the scheduler is rebuilt
+    at ``WNT_SERVING_BATCH``'s default, 16, timestamped, two-tier, with
+    bench.py's token limits HANDLER_MIN_NEW-HANDLER_MAX_NEW (random
+    weights never emit EOT); then ``warmup()`` (timed), four requests of
+    one 30 s window (the first and the steady latency), one job of
+    JOB_SECONDS of four voices alone, then four such jobs submitted
+    together (``asyncio.gather`` of ``handler(job)``), the download
+    stubbed with a hard link to a local WAV. Every kernel's count is set
+    to 0 just before the lone job and read just after the four; C must
+    launch once a dispatch, B once a dispatch and encoder layer, A once a
+    decode step and decoder layer, D, E and F never; each launch's shape
+    is recorded (``recording_launches``). Prints the walls, seconds per
+    audio hour, windows, dispatches by pad size, the diarization's share,
+    the peak device memory and the launches by shape."""
+    import asyncio
+    import importlib
+
+    import torch
+
+    from whisper_nemo_tpu_torch.audio import write_wav
+    from whisper_nemo_tpu_torch.diarize import pipeline
+    from whisper_nemo_tpu_torch.models.whisper import WHISPER_DIMS
+    from whisper_nemo_tpu_torch.ops import attention, beam_permute, cross_decode, ctc, mel, self_decode
+    from whisper_nemo_tpu_torch.serving.scheduler import WindowScheduler
+
+    H = importlib.import_module("whisper_nemo_tpu_torch.serving.handler")
+    counters = (cross_decode.cross_attention_decode_layered, attention.encoder_attention,
+                mel.log_mel_raw, ctc.viterbi_batch, self_decode.self_attention_decode_ancestry_layered,
+                beam_permute.beam_permute_cache, beam_permute.beam_permute_cache_inplace)
+    knobs = ("WNT_SERVING_COMPUTE", "WNT_SERVING_BATCH", "WNT_SERVING_BUCKETS",
+             "WNT_SERVING_BUCKET_POLICY", "WNT_SERVING_SCHEDULER")
+    check(not any(k in os.environ for k in knobs), f"6h runs the handler's defaults: unset {knobs}")
+    sync = torch.cuda.synchronize
+    out = {}
+    with contextlib.ExitStack() as stack:
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        models = os.path.join(tmp, "models")
+        os.makedirs(models)
+        stack.enter_context(model_dir(models))
+        t0 = time.time()
+        serving_trees(models, seed + 80, pipeline._TITANET_LARGE)
+        trees_s = time.time() - t0
+        stack.enter_context(patched(H, "WHISPER_MODEL_NAME", "large-v2"))
+        t0 = time.time()
+        H.load_models(warm=False)
+        sync()
+        load_s = time.time() - t0
+        eng = H.whisper_model.engine
+        try:
+            check(eng.dims == WHISPER_DIMS["large-v2"] and eng.dtype == torch.bfloat16
+                  and eng.cross_kv_bits == 8 and "out_proj_q" in eng.params["decoder"],
+                  "6h: the handler did not load large-v2 at int8")
+            check(H.diarization_pipeline.diarizer.spk_dims == pipeline._TITANET_LARGE
+                  and H.diarization_pipeline.diarizer.cfg.diarizer.msdd_model.model_path is None,
+                  "6h: the diarizer is not the general preset on TitaNet-large")
+            check(H.window_scheduler.batch_size == 16, "6h: the scheduler's batch is not 16")
+            H.window_scheduler.shutdown()
+            sched = H.window_scheduler = WindowScheduler(
+                eng, batch_size=16, without_timestamps=False, min_new_tokens=HANDLER_MIN_NEW,
+                max_new_tokens=HANDLER_MAX_NEW)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            H.warmup()
+            sync()
+            warm_s = time.time() - t0
+
+            request = voices(30.0, seed + 81, 4)
+            latency = []
+            for _ in range(4):
+                t0 = time.time()
+                check(bool(sched.transcribe(request, "en")), "6h: a 30 s request gave no segment")
+                latency.append(time.time() - t0)
+
+            wav = os.path.join(tmp, "job.wav")
+            write_wav(wav, voices(JOB_SECONDS, seed + 82, 4))
+            log, asr, diar = [], [], []
+            record_dispatches(sched, log)
+            recording(stack, H, "_transcribe_via_scheduler", asr)
+            recording(stack, H, "_diarization_turns", diar)
+            wire_handler(stack, H, H.whisper_model, H.diarization_pipeline, sched, wav,
+                         "large-v2")
+            shapes = recording_launches(stack)
+
+            async def jobs(n):
+                return await asyncio.gather(*(H.handler({"id": f"6h-{i}", "input": {
+                    **SERVE_JOB, "max_speakers": 4}}) for i in range(n)))
+
+            for fn in counters:
+                fn.launches = 0
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.time()
+            alone = asyncio.run(jobs(1))
+            sync()
+            alone_s = time.time() - t0
+            lone_log = len(log)
+            t0 = time.time()
+            four = asyncio.run(jobs(4))
+            sync()
+            four_s = time.time() - t0
+            launches = [fn.launches for fn in counters]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            shapes = {k: collections.Counter(v) for k, v in shapes.items()}
+            step = decode_step_times(eng, request, sched.batch_size,
+                                     len(eng._prompt("en", False, None)[0]) + HANDLER_MAX_NEW)
+        finally:
+            H.window_scheduler.shutdown()
+            eng.unload()
+    H.whisper_model = H.diarization_pipeline = H.window_scheduler = None
+    torch.cuda.empty_cache()
+
+    for r in alone + four:
+        check(r["success"] is True, f"6h: a job failed: {r.get('error')}")
+        check(len(r["segments_detailles"]) > 0 and r["statistiques"]["speakers_detectes"] > 0,
+              "6h: a job's response holds no segment or no speaker")
+    a, b, c, d, e, *f = launches
+    steps = sum(x["steps"] for x in log)
+    check((c, b, a) == (len(log), len(log) * eng.dims.n_audio_layer, steps * eng.dims.n_text_layer)
+          and d == e == 0 and f == [0, 0],
+          f"6h: launches {launches} for {len(log)} dispatches of {steps} steps")
+    check([sum(shapes[k].values()) for k in "ABCDE"] == [a, b, c, d, e],
+          "6h: the recorded launches are not the counts")
+    windows = sum(len(x["starts"]) for x in log[:lone_log])
+    pads = [collections.Counter(x["bucket"] for x in part) for part in (log[:lone_log],
+                                                                        log[lone_log:])]
+    diar_alone = diar[0][0]
+    r = alone[0]
+    print(f"[6h serving] {smi} | load_models(warm=False): Whisper large-v2 int8 (seeded random"
+          f" init on the card; the trees and vocabulary written in {trees_s:.1f} s) and the"
+          f" general-preset diarizer on TitaNet-large in {load_s:.1f} s; scheduler batch 16,"
+          f" timestamped, two-tier, tokens {HANDLER_MIN_NEW}-{HANDLER_MAX_NEW} | warmup()"
+          f" {warm_s:.2f} s (buckets {sched._buckets()} and a 1 s request) | one 30 s window:"
+          f" first {latency[0]:.3f} s, steady {min(latency[1:]):.3f} s"
+          f" ({', '.join(f'{x:.3f}' for x in latency)})")
+    print(f"[6h serving] one job of {JOB_SECONDS:.0f} s of four voices alone: wall {alone_s:.2f} s"
+          f" ({alone_s / JOB_SECONDS * 3600:.1f} s per audio hour; processing_time"
+          f" {r['processing_time']:.2f} s), {windows} windows in {lone_log} dispatches (pad sizes"
+          f" {dict(sorted(pads[0].items()))}), ASR {asr[0][0]:.2f} s, diarization"
+          f" {diar_alone:.2f} s ({diar_alone / alone_s:.0%} of the wall),"
+          f" {len(r['segments_detailles'])} segments, {r['statistiques']['speakers_detectes']}"
+          f" speakers")
+    print(f"[6h serving] four such jobs together: wall {four_s:.2f} s ({four_s / 4:.2f} s a job,"
+          f" {four_s / (4 * JOB_SECONDS) * 3600:.1f} s per audio hour; processing_time"
+          f" {', '.join(f'{x['processing_time']:.2f}' for x in four)} s), {len(log) - lone_log}"
+          f" dispatches (pad sizes {dict(sorted(pads[1].items()))}), diarizations"
+          f" {', '.join(f'{t:.2f}' for t, *_ in diar[1:])} s | peak device memory {peak:.2f} GiB"
+          f" ({held / 2**30:.2f} held before the jobs) | launches over the five jobs: A {a}"
+          f" (= {steps} steps x {eng.dims.n_text_layer}), B {b}, C {c} (= {len(log)} dispatches),"
+          f" D, E, F 0")
+    for letter in "ABC":
+        for key, n in sorted(shapes[letter].items(), key=str):
+            print(f"  6h kernel {letter}: {n} launches at {key}")
+    print(f"[6h serving] a full dispatch, measured apart: encoder {step['encoder_ms']:.2f} ms"
+          f" (B=16), greedy decode step {step['step_ms']:.3f} ms (CUDA events); host enqueues a"
+          f" step in {step['enqueue_ms']:.3f} ms, device done {step['done_ms']:.3f} ms after the"
+          f" first enqueue, per step (the decoder alone: the serving step also filters its"
+          f" logits by the timestamp rules) | torch.profiler: {fmt_profile(step['profile'])}")
+    out.update(shapes=shapes, launches=launches, alone_s=alone_s, four_s=four_s,
+               latency=latency, warm_s=warm_s, peak=peak, step=step)
+    return out
+
+
+def decode_step_times(eng, audio: np.ndarray, batch: int, cache_positions: int) -> dict:
+    """The encoder's ms on ``batch`` copies of the 30 s ``audio``, and a
+    greedy decoder step's over their int8 cross-KV (``decode_step_stacked``
+    alone, as phase 6b measures it): CUDA events, the host's time to
+    enqueue 50 steps against the device's to finish them, and the
+    profiler's device time by kernel. These launches are not counted."""
+    import torch
+
+    from whisper_nemo_tpu_torch.models.whisper_stacked import (
+        cross_kv_for_decode,
+        decode_step_stacked,
+        init_stacked_cache,
+    )
+    from whisper_nemo_tpu_torch.ops import mel
+
+    dev = eng.device
+    waves = torch.from_numpy(np.stack([audio[: mel.N_SAMPLES]] * batch)).to(dev)
+    with torch.inference_mode():
+        mels = mel.log_mel_spectrogram_batch(waves, eng.dims.n_mels)
+        encoder_ms = cuda_ms(lambda i=0: eng.encode_windows(mels), 3)
+        ckv = cross_kv_for_decode(eng.params, eng.encode_windows(mels), eng.dims,
+                                  eng.cross_kv_bits)
+        cache_len = -(-cache_positions // 128) * 128
+        cache = init_stacked_cache(batch, eng.dims, eng.dtype, cache_len, dev)
+        tok = torch.full((batch,), 220, device=dev)
+
+        def step(i=0):
+            return decode_step_stacked(eng.params, tok, 4 + i % (cache_len - 8), cache, ckv,
+                                       eng.dims, eng.dtype, return_hidden=True)
+
+        step_ms = cuda_ms(step, 50)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(50):
+            step(i)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3 / 50
+        torch.cuda.synchronize()
+        done_ms = (time.perf_counter() - t0) * 1e3 / 50
+        profile = profiled_device_ms(step, 5)
+    return {"encoder_ms": encoder_ms, "step_ms": step_ms, "enqueue_ms": enqueue_ms,
+            "done_ms": done_ms, "profile": profile}
+
+
+def phase_serving_kernels(run: dict, seed: int) -> list:
+    """6i: kernels A, B and C held against their plain versions at every
+    shape 6h launched them at (``hold_launched_shape``), timed, with SDPA
+    beside B; returns their JSON entries, one a shape, with 6h's launches."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 83)
+    entries = []
+    for letter in "ABC":
+        for shape, n in sorted(run["shapes"][letter].items(), key=str):
+            desc, r = hold_launched_shape(letter, shape, g, seed + 84, f"{n} launches in 6h",
+                                          "6i")
+            entries.append(kernel_entry(letter, f"the serving handler, 6h: {desc}", n, r))
     return entries
 
 
@@ -2909,6 +3627,7 @@ def main() -> int:
     phase_widths_parity(args.seed)
     phase_diar_parity(args.seed)
     phase_flow_parity(args.seed)
+    phase_serving_parity(args.seed)
     main_run = phase_main_path(args.seed)
     phase_stage_times(main_run, a, e)
     phase_align_stage_times(main_run, d["a"])
@@ -2917,6 +3636,7 @@ def main() -> int:
     default = phase_default_main(args.seed)
     phase_diar_main(args.seed)
     flow_entries = phase_flow_kernels(phase_flow_main(args.seed, smi), args.seed)
+    serving_entries = phase_serving_kernels(phase_serving_main(args.seed, smi), args.seed)
 
     import torch
 
@@ -2980,6 +3700,9 @@ def main() -> int:
         # the CLI flow at full width (6f): each kernel at each shape the flow launched it at
         # (6g), with its launches there
         *flow_entries,
+        # the serving handler at full width (6h): A, B and C at each shape it launched them at
+        # (6i), with their launches there
+        *serving_entries,
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from test_torch_slice import (  # noqa: F401  (_one_torch_thread: autouse)
-    BATCH, DIMS, SR, _first_difference, _jax_forced_logits, _one_torch_thread, speechlike,
+    BATCH, DIMS, SR, _first_difference, _jax_forced_logits, _one_torch_thread, jax_init_whisper,
+    speechlike,
 )
 from whisper_nemo_tpu.asr import faster_whisper_api as jax_api
 from whisper_nemo_tpu.engine import decode as jd
@@ -176,7 +177,7 @@ EOT_DONOR = 8605
 
 @pytest.fixture(scope="module")
 def beam_case():
-    jparams = jw.init_whisper_params(jax.random.PRNGKey(1), jw.WhisperDims(*DECODE_DIMS))
+    jparams = jax_init_whisper(jax.random.PRNGKey(1), jw.WhisperDims(*DECODE_DIMS))
     emb = np.array(jparams["decoder"]["tok_emb"]) * 10
     emb[50257] = emb[EOT_DONOR] + 0.3 * emb[50257]
     jparams = {**jparams, "decoder": {**jparams["decoder"], "tok_emb": jnp.asarray(emb)}}
@@ -249,7 +250,7 @@ def test_batched_pipeline_beam5_matches_jax():
     hypothesis, rescored by JAX, has the port's mean log-probability per
     token within SCORE_TOL and JAX's best within BEAM_TIE_TOL; text equal
     where tokens are; no-speech probabilities within 1e-3."""
-    jparams = jw.init_whisper_params(jax.random.PRNGKey(2), jw.WhisperDims(*DIMS))
+    jparams = jax_init_whisper(jax.random.PRNGKey(2), jw.WhisperDims(*DIMS))
     audio = speechlike(70.0, 0)
     jmodel = jax_api.WhisperModel.__new__(jax_api.WhisperModel)
     jmodel.engine = jax_api.WhisperEngine(

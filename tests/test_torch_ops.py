@@ -43,7 +43,7 @@ def test_converter_and_quantize_match_jax():
     """params_from_jax carries every array (conv weights WIO -> OIW); the
     port's int8 weights and f32 scales equal the JAX package's exactly
     (both compute the scale as amax times f32 1/127)."""
-    jparams = init_whisper_params(jax.random.PRNGKey(0), TINY)
+    jparams = jax.jit(init_whisper_params, static_argnums=1)(jax.random.PRNGKey(0), TINY)
     params = params_from_jax(jparams)
     flat = dict(_leaves(params))
     for path, leaf in _leaves(jparams):

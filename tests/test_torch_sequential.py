@@ -79,20 +79,37 @@ def _clear_jax_decode_caches():
         fn.clear_cache()
 
 
+def _first_stamp_as_pair(logits, filtered, tokens, pos, n_prompt, opts):
+    """JAX's ``filtered`` logits with openai-whisper's second step: after
+    the first generated token, a timestamp, only text or EOT
+    (``<|notimestamps|>`` and every timestamp masked), where JAX's rules
+    take that stamp for a lone one and allow only timestamps or EOT."""
+    ts = opts.timestamp_begin
+    after_first = (pos - n_prompt == 1) & (tokens[:, jnp.maximum(pos - 1, 0)] >= ts)
+    ids = jnp.arange(logits.shape[1])[None, :]
+    text_next = jnp.where((ids >= ts) | (ids == opts.no_timestamps), -jnp.inf, logits)
+    return jnp.where(after_first[:, None], text_next, filtered)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _jax_rules_over_generated_tokens():
     """The reference for every decode with timestamps in this module: JAX's
-    rules over the generated tokens only (``_hide_prompt_stamps``). JAX's
-    own rules also read the conditioning prefix, which masks every token
-    of a window's first step once the previous text holds a stamp past
-    1.0 s (test_timestamp_rules_ignore_the_prompt). JAX's compiled
+    rules over the generated tokens only (``_hide_prompt_stamps``), with
+    openai-whisper's second step (``_first_stamp_as_pair``), as the port's
+    rules read them. JAX's own rules also read the conditioning prefix,
+    which masks every token of a window's first step once the previous
+    text holds a stamp past 1.0 s (test_timestamp_rules_ignore_the_prompt),
+    and force a second timestamp after the first, which empties every
+    segment of a timestamped window
+    (test_timestamp_rules_take_text_after_the_first_stamp). JAX's compiled
     decodes are dropped on both sides of the patch, so that no trace is
     shared between the patched and the unpatched rules."""
     rules = jd._apply_timestamp_rules
 
     def over_generated(logits, tokens, pos, n_prompt, opts):
         hidden = _hide_prompt_stamps(tokens, n_prompt, opts.timestamp_begin)
-        return rules(logits, hidden, pos, n_prompt, opts)
+        return _first_stamp_as_pair(logits, rules(logits, hidden, pos, n_prompt, opts), tokens,
+                                    pos, n_prompt, opts)
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jd, "_apply_timestamp_rules", over_generated)
@@ -249,6 +266,30 @@ def test_timestamp_rules_ignore_the_prompt(prefix_case):
     first = out[0][:, 12]
     assert bool(((first >= TS) & (first <= TS + 50)).all())
     assert bool(torch.isfinite(out[2]).all())
+
+
+def test_timestamp_rules_take_text_after_the_first_stamp():
+    """The second generated token, after the first (a timestamp): the
+    port's rules, openai-whisper's, open text and EOT and mask every
+    timestamp, as ``_first_stamp_as_pair`` reads JAX's; JAX's own rules
+    take the first stamp for a lone one and open only timestamps and
+    EOT, so its windows decode a second stamp and the host's split
+    (``_split_on_timestamps``) finds no text between them."""
+    logits, tokens, _ = _ts_case("step0")
+    tokens[:, 6] = TS + 15
+    hidden = _hide_prompt_stamps(jnp.asarray(tokens, jnp.int32), 6, TS)
+    opts = jd.DecodeOptions(**_RULE_OPTS)
+    want = np.asarray(_jax_rules(jnp.asarray(logits), hidden, jnp.int32(7), 6, opts))
+    assert np.isinf(want[:, :50256]).all() and np.isfinite(want[:, TS + 15:]).all()
+    want = np.asarray(_first_stamp_as_pair(jnp.asarray(logits), jnp.asarray(want), hidden,
+                                           jnp.int32(7), 6, opts))
+    got = td._apply_timestamp_rules(torch.from_numpy(logits), torch.from_numpy(tokens), 7, 6,
+                                    td.DecodeOptions(**_RULE_OPTS)).numpy()
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    np.testing.assert_array_equal(got[np.isfinite(want)], want[np.isfinite(want)])
+    for row in got:
+        np.testing.assert_array_equal(np.flatnonzero(np.isfinite(row)),
+                                      np.setdiff1d(np.arange(TS), [50362]))
 
 
 def _token_lists(seed, n=60):
@@ -546,7 +587,9 @@ def test_sequential_facade_matches_jax(engines):
     ``_decode_batch`` at the port's seek with the port's conditioning
     tail and meets the window rule; where a window's tokens are equal,
     its segments (texts, times restored from the VAD map, tokens) and
-    its seek advance are JAX's."""
+    its seek advance are JAX's, but for the segments that end at or
+    before their start (begun past the window's audio), which the port
+    drops."""
     jeng, teng, _ = engines
     tmodel = WhisperModel.__new__(WhisperModel)
     tmodel.engine = teng
@@ -567,12 +610,13 @@ def test_sequential_facade_matches_jax(engines):
         rec, jt = replayed[:2]
         if not _check_window(jeng, replayed, 5):
             continue
-        # equal tokens: the window's segments are JAX's split of them
+        # equal tokens: the window's segments are JAX's split of them, but
+        # for a segment that ends at or before its start, which the port drops
         frames = min(3000, content - rec["seek"])
         want = [(jeng.tokenizer.decode(t), jtr._restore_vad_time(a, time_map),
                  jtr._restore_vad_time(b, time_map), t)
                 for t, a, b in jtr._split_on_timestamps(jt, ts, rec["seek"] * 0.01, frames * 0.01,
-                                                        frames)[0]]
+                                                        frames)[0] if b > a]
         want = [w for w in want if w[0].strip()]
         assert [(s.text, s.start, s.end, s.tokens) for s in got if s.seek == rec["seek"]] == want
         assert rec["frames"] == jtr._split_on_timestamps(jt, ts, 0.0, frames * 0.01, frames)[1]
@@ -641,6 +685,29 @@ def _stub_decode(engine, calls, port):
         return out + (1,)
 
     engine._decode_batch = decode
+
+
+def test_segment_begun_past_the_window_is_dropped(engines):
+    """A 4 s recording's window decodes a closed segment inside its audio,
+    then an open one begun at 5.0 s, past it: JAX's split runs that one to
+    the window's end, before its start, and the port drops it (the
+    serving merge would divide by its duration)."""
+    jeng, teng, _ = engines
+    ts, word = teng.tokenizer.timestamp_begin, 1000
+    gen = [ts, word, ts + 50, ts + 250, word + 1]
+
+    def decode(*args, **kwargs):
+        return (torch.tensor([[teng.tokenizer.sot] + gen + [teng.tokenizer.eot]]),
+                torch.tensor([len(gen)]), torch.tensor([-1.0]), torch.tensor([0.1]), 1, 0)
+
+    teng._decode_batch = decode
+    try:
+        got, _ = teng.transcribe_sequential(speechlike(4.0, 3), "en", temperatures=(0.0,))
+    finally:
+        del teng._decode_batch
+    split = jtr._split_on_timestamps(gen, ts, 0.0, 4.0, 400)[0]
+    assert [(a, b) for _, a, b in split] == [(0.0, 1.0), (5.0, 4.0)]
+    assert [(s.start, s.end, s.tokens) for s in got] == [(0.0, 1.0, [word])]
 
 
 @pytest.mark.parametrize("facade", ["faster_whisper", "openai"])

@@ -9,6 +9,7 @@ the same quantization as the port's decode layout.
 """
 
 import fcntl
+import functools
 import pathlib
 import re
 import subprocess
@@ -43,6 +44,8 @@ BATCH = 2
 # greedy picks meet near-ties; int8 decode-step logits agree to 0.02
 # (test_torch_whisper.py), so a differing pick must be that close.
 TIE_TOL = 0.02
+# JAX's init compiled once, where it runs op by op (its dims static)
+jax_init_whisper = jax.jit(jw.init_whisper_params, static_argnums=1)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -78,6 +81,16 @@ def _first_difference(a, b, eot):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
+@functools.partial(jax.jit, static_argnums=(3, 4))
+def _jax_prefill_logits(stacked, feats, tokens, dims, n_prompt):
+    """JAX's int8 teacher-forced prefill logits from row ``n_prompt - 1``
+    on, in one compile rather than one per operation."""
+    ckv = jws.quantize_cross_kv_stacked(jws.cross_attention_kv_stacked(stacked, feats, dims))
+    cache = jws.init_stacked_cache(tokens.shape[0], dims, jnp.bfloat16, cache_len=128)
+    x, _ = jws.prefill_cache_stacked(stacked, tokens, cache, ckv, dims, jnp.bfloat16)
+    return jw._vocab_logits(stacked["decoder"], x[:, n_prompt - 1 :])
+
+
 def _jax_forced_logits(engine, audio, windows, hyps):
     """JAX's filtered f32 logits ``[BATCH, n, V]`` of each window's
     hypothesis ``hyps[i]`` (generated tokens), teacher-forced through one
@@ -88,15 +101,12 @@ def _jax_forced_logits(engine, audio, windows, hyps):
         n = min(e - s, 480000)
         waves[i, :n] = audio[s : s + n]
     feats = engine.encode_windows(jax_mel_batch(jnp.asarray(waves), 80)).astype(jnp.bfloat16)
-    stacked = engine._params_stacked
-    ckv = jws.quantize_cross_kv_stacked(jws.cross_attention_kv_stacked(stacked, feats, engine.dims))
     opts = engine._make_opts()
     prompt = engine.tokenizer.sot_sequence(None, without_timestamps=True)
     n = len(prompt) + max(len(h) for h in hyps)
     tokens = jnp.asarray([(prompt + list(h) + [opts.eot] * n)[:n] for h in hyps])
-    cache = jws.init_stacked_cache(BATCH, engine.dims, jnp.bfloat16, cache_len=128)
-    x, _ = jws.prefill_cache_stacked(stacked, tokens, cache, ckv, engine.dims, jnp.bfloat16)
-    logits = np.array(jw._vocab_logits(stacked["decoder"], x[:, len(prompt) - 1 :]), np.float32)
+    logits = np.array(_jax_prefill_logits(engine._params_stacked, feats, tokens, engine.dims,
+                                          len(prompt)), np.float32)
     logits += build_suppress_mask(engine.dims.n_vocab, get_suppressed_tokens(engine.tokenizer, (-1,)))
     logits[..., opts.timestamp_begin :] = -np.inf
     logits[..., opts.no_timestamps] = -np.inf
@@ -117,7 +127,7 @@ def test_batched_pipeline_matches_jax():
     first differing token JAX's top-2 logit margin, and its logit gap
     between the two picks, are below TIE_TOL; text equal where tokens are; no-speech probabilities (f32
     softmax at the SOT position) and mean log-probs close."""
-    jparams = jw.init_whisper_params(jax.random.PRNGKey(2), jw.WhisperDims(*DIMS))
+    jparams = jax_init_whisper(jax.random.PRNGKey(2), jw.WhisperDims(*DIMS))
     audio = speechlike(70.0, 0)
 
     # the JAX facade builds its engine by name only: hand it one built on the tree
@@ -213,7 +223,7 @@ def test_facade_refuses_what_the_port_lacks(tmp_path, no_libav):
 
     model = WhisperModel(
         "tiny.en", device="cpu", compute_type="int8",
-        params=params_from_jax(jw.init_whisper_params(jax.random.PRNGKey(0), jw.WhisperDims(*DIMS))),
+        params=params_from_jax(jax_init_whisper(jax.random.PRNGKey(0), jw.WhisperDims(*DIMS))),
         dims=WhisperDims(*DIMS), tokenizer=WhisperTokenizer.byte_fallback(multilingual=False),
     )
     pipeline = BatchedInferencePipeline(model)
@@ -232,7 +242,9 @@ def test_facade_refuses_what_the_port_lacks(tmp_path, no_libav):
 def test_port_imports_no_jax():
     """A fresh interpreter imports every module of the port and loads
     neither jax, the JAX package nor nltk (``post/punkt.py`` is the port's
-    copy of the Punkt predicate it needs)."""
+    copy of the Punkt predicate it needs), nor pydantic or aiohttp, on
+    which the port does not depend (the serving schemas are dataclasses;
+    aiohttp is imported by the calls that need it)."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "whisper_nemo_tpu_torch").rglob("*.py")
@@ -247,12 +259,17 @@ def test_port_imports_no_jax():
             "whisper_nemo_tpu_torch.audio.decode", "whisper_nemo_tpu_torch.post.punkt",
             "whisper_nemo_tpu_torch.post.speaker_map", "whisper_nemo_tpu_torch.models.punctuation",
             "whisper_nemo_tpu_torch.cli.flow", "whisper_nemo_tpu_torch.cli.__main__",
-            "whisper_nemo_tpu_torch.compat.helpers", "whisper_nemo_tpu_torch.utils.logging"} <= set(modules)
+            "whisper_nemo_tpu_torch.compat.helpers", "whisper_nemo_tpu_torch.utils.logging",
+            "whisper_nemo_tpu_torch.serving.__init__", "whisper_nemo_tpu_torch.serving.scheduler",
+            "whisper_nemo_tpu_torch.serving.handler", "whisper_nemo_tpu_torch.serving.schemas",
+            "whisper_nemo_tpu_torch.serving.download", "whisper_nemo_tpu_torch.utils.monitor",
+            "whisper_nemo_tpu_torch.utils.profiling"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'whisper_nemo_tpu', 'nltk'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'whisper_nemo_tpu', 'nltk',\n"
+        "                                    'pydantic', 'aiohttp'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -325,3 +342,49 @@ def test_speaker_map_differs_only_in_its_nltk_lines():
         "+from .punkt import text_contains_sentbreak",
         "+    has_break = text_contains_sentbreak",
     ]
+
+
+def test_download_differs_only_in_its_lazy_aiohttp_import():
+    """The port's serving/download.py is the JAX module's but for its copy
+    note and its aiohttp import, which moved into the download call (with
+    an ImportError naming aiohttp where it is absent), so that the module
+    imports on a card without aiohttp."""
+    import difflib
+
+    ours = (REPO / "whisper_nemo_tpu_torch/serving/download.py").read_text().splitlines()
+    theirs = (REPO / "whisper_nemo_tpu/serving/download.py").read_text().splitlines()
+    changed = [line for line in difflib.unified_diff(theirs, ours, lineterm="", n=0)
+               if line[:1] in "+-" and not line.startswith(("+++", "---"))]
+    assert [line for line in changed if line.startswith("-")] == ["-", "-import aiohttp"]
+    assert [line for line in changed if line.startswith("+")] == [
+        "+",
+        "+A copy of ``whisper_nemo_tpu/serving/download.py``, carried so that the",
+        "+port imports nothing of the JAX package, but for its aiohttp import,",
+        "+which moved into ``download_audio_file``: the module imports where",
+        "+aiohttp is absent, and the call raises an ImportError naming it.",
+        "+    try:",
+        "+        import aiohttp",
+        "+    except ImportError as exc:",
+        '+        raise ImportError("downloading a job\'s audio needs aiohttp") from exc',
+        "+",
+    ]
+
+
+def test_download_without_aiohttp_names_it(monkeypatch):
+    """Where aiohttp cannot be imported, the download raises an ImportError
+    that names it, which the handler turns into a failed job."""
+    import asyncio
+    import builtins
+
+    from whisper_nemo_tpu_torch.serving.download import download_audio_file
+
+    real_import = builtins.__import__
+
+    def no_aiohttp(name, *args, **kwargs):
+        if name == "aiohttp":
+            raise ImportError("No module named 'aiohttp'")
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_aiohttp)
+    with pytest.raises(ImportError, match="aiohttp"):
+        asyncio.run(download_audio_file("https://example.com/a.wav"))

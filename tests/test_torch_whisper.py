@@ -37,7 +37,8 @@ def _j2t(x):
 
 @pytest.fixture(scope="module")
 def trees():
-    jparams = jw.init_whisper_params(jax.random.PRNGKey(1), DIMS)
+    init = jax.jit(jw.init_whisper_params, static_argnums=1)  # one compile, not one per op
+    jparams = init(jax.random.PRNGKey(1), DIMS)
     return jparams, params_from_jax(jparams)
 
 
@@ -52,11 +53,15 @@ def _mel():
     return rng.standard_normal((2, 80, 3000)).astype(np.float32)
 
 
+# JAX's encoder compiled once per width, where it runs op by op
+_jax_encode = jax.jit(jw.encode, static_argnums=(2, 3))
+
+
 def test_encode_f32_matches_jax(trees):
     """f32 encoder: 1e-5 absolute on layer-normed features of order 1
     (summation order through conv, two blocks and the final norm)."""
     jparams, params = trees
-    want = np.asarray(jw.encode(jparams, jnp.asarray(_mel()), DIMS, jnp.float32))
+    want = np.asarray(_jax_encode(jparams, jnp.asarray(_mel()), DIMS, jnp.float32))
     got = tw.encode(params, torch.from_numpy(_mel()), TDIMS, torch.float32)
     assert got.shape == (2, 1500, 64) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
@@ -68,7 +73,7 @@ def test_encode_int8_matches_jax(trees):
     through two blocks; the mean error stays an order below that."""
     jparams, params = trees
     want = np.asarray(
-        jw.encode(jax_quantize(jparams), jnp.asarray(_mel()), DIMS, jnp.bfloat16), np.float32
+        _jax_encode(jax_quantize(jparams), jnp.asarray(_mel()), DIMS, jnp.bfloat16), np.float32
     )
     got = tw.encode(quantize_whisper_params(params), torch.from_numpy(_mel()), TDIMS,
                     torch.bfloat16).float().numpy()

@@ -209,6 +209,12 @@ def small_trees(jparams):
     return jws.stack_decoder_blocks(jparams), tws.stack_decoder_blocks(params_from_jax(jparams))
 
 
+# JAX's prefill and decode step compiled once each (their dims, dtype and
+# cache shapes static), where the engine runs them op by op
+_jax_prefill = jax.jit(jws.prefill_cache_stacked, static_argnums=(4, 5))
+_jax_step = jax.jit(jws.decode_step_stacked, static_argnums=(5, 6))
+
+
 def test_float_cross_kv_prefill_and_step_match_jax(small_trees):
     """The float cross-KV (the f32 widths) against JAX's float branch at
     f32: the projections (the port keeps K times D^-¼ and both
@@ -233,7 +239,7 @@ def test_float_cross_kv_prefill_and_step_match_jax(small_trees):
     kv_valid = np.concatenate([valid, np.ones((2, 128 - 6), bool)], axis=1)
     pos_offset = (~valid).sum(axis=1).astype(np.int32)
     jcache = jws.init_stacked_cache(2, jw.WhisperDims(*DIMS), jnp.float32, cache_len=128)
-    jx, jcache = jws.prefill_cache_stacked(
+    jx, jcache = _jax_prefill(
         jstacked, jnp.asarray(prompt), jcache, jckv, jw.WhisperDims(*DIMS), jnp.float32,
         kv_valid=jnp.asarray(kv_valid), pos_offset=jnp.asarray(pos_offset))
     tcache = tws.init_stacked_cache(2, tw.WhisperDims(*DIMS), torch.float32, 128, "cpu")
@@ -244,7 +250,7 @@ def test_float_cross_kv_prefill_and_step_match_jax(small_trees):
     np.testing.assert_allclose(tcache["k"].numpy(), np.asarray(jcache["k"]), atol=1e-5)
 
     token = np.array([100, 7000], np.int32)
-    want, _ = jws.decode_step_stacked(
+    want, _ = _jax_step(
         jstacked, jnp.asarray(token), jnp.int32(6), jcache, jckv, jw.WhisperDims(*DIMS),
         jnp.float32, kv_valid=jnp.asarray(kv_valid), pos_offset=jnp.asarray(pos_offset))
     got, _ = tws.decode_step_stacked(
@@ -260,7 +266,7 @@ def test_float_cross_kv_prefill_and_step_match_jax(small_trees):
     jbcache = {n: jnp.repeat(c, beam, axis=1) for n, c in jcache.items()}
     jbckv = {n: jnp.repeat(c, beam, axis=1) for n, c in jckv.items()}
     rep = np.repeat
-    want, _ = jws.decode_step_stacked(
+    want, _ = _jax_step(
         jstacked, jnp.asarray(btoken), jnp.int32(6), jbcache, jbckv, jw.WhisperDims(*DIMS),
         jnp.float32, anc=jnp.asarray(anc), kv_valid=jnp.asarray(rep(kv_valid, beam, axis=0)),
         pos_offset=jnp.asarray(rep(pos_offset, beam)))

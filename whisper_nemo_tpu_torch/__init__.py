@@ -16,7 +16,9 @@ detection), beam 5 by default or greedy; the openai-whisper facade
 sequential path; word alignment of the segments (``align``: wav2vec2
 emissions, batched CTC Viterbi); and NeMo-style diarization
 (``diarize``: VAD, multiscale TitaNet embeddings, NME-SC spectral
-clustering, MSDD; plain torch, no kernel). Six hand-written CUDA kernels for Hopper
+clustering, MSDD; plain torch, no kernel); and the serverless handler
+(``serving``: the job handler, the cross-request window scheduler, the
+schemas, the download). Six hand-written CUDA kernels for Hopper
 build from ``csrc/`` at first use (``ops/_build.py``): decode-step
 cross-attention (``ops/cross_decode.py``), encoder self-attention
 (``ops/attention.py``), the single-window log-mel (``ops/mel.py``), the

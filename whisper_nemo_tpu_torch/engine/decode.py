@@ -43,6 +43,7 @@ class DecodeOptions:
     """Decode configuration and the token ids the loop needs."""
 
     max_new_tokens: int = 224
+    min_new_tokens: int = 0  # EOT suppressed below this generated count
     suppress_blank: bool = True
     without_timestamps: bool = True
     temperature: float = 0.0
@@ -74,14 +75,17 @@ def _apply_timestamp_rules(logits, tokens, pos: int, n_prompt: int, opts: Decode
     (``[B, L]``, the prompt then the generated tokens): <|notimestamps|>
     never; after a timestamp pair only text, after a lone timestamp only
     timestamps or EOT; no timestamp below the latest generated one; the
-    first generated token a timestamp of at most 1.0 s; and a timestamp
-    whenever the timestamps' total probability beats every text token's.
+    first generated token a timestamp of at most 1.0 s, which counts as a
+    pair (text or EOT next); and a timestamp whenever the timestamps'
+    total probability beats every text token's.
 
     The rules read the generated tokens only, as openai-whisper's
-    ``ApplyTimestampRules`` does. The JAX package also reads the prompt
-    for the latest timestamp, so a conditioning tail with a stamp past
-    1.0 s masks every token of its first step there (ROADMAP, queue 3);
-    on a prompt without timestamps the two agree."""
+    ``ApplyTimestampRules`` does. The JAX package differs twice (ROADMAP,
+    queue 3): it reads the prompt for the latest timestamp, so a
+    conditioning tail with a stamp past 1.0 s masks every token of its
+    first step; and it takes the first timestamp for a lone one, so a
+    second timestamp follows it, and every segment the host splits from
+    such a window is empty. Elsewhere the two agree."""
     inf = float("-inf")
     v = logits.shape[1]
     ts_begin = opts.timestamp_begin
@@ -91,7 +95,8 @@ def _apply_timestamp_rules(logits, tokens, pos: int, n_prompt: int, opts: Decode
     last = tokens[:, max(pos - 1, 0)]
     penult = tokens[:, max(pos - 2, 0)]
     last_was_ts = (last >= ts_begin) & (step >= 1)
-    penult_was_ts = (penult >= ts_begin) & (step >= 2)
+    # openai-whisper: ``len(seq) < 2 or seq[-2] >= timestamp_begin``
+    penult_was_ts = (penult >= ts_begin) | (step < 2)
     ids = torch.arange(v, device=logits.device)[None, :]
     is_ts = ids >= ts_begin
     is_text = ids < opts.eot
@@ -129,8 +134,11 @@ def _static_filter(suppress_mask: torch.Tensor, opts: DecodeOptions, dev) -> tor
 
 def _filter_logits(logits, static, tokens, pos: int, n_prompt: int, opts: DecodeOptions):
     """Filtered f32 logits of the token at ``pos``: the static filter,
-    blank and EOT at the first step, then the timestamp rules."""
+    EOT below ``min_new_tokens`` generated tokens, blank and EOT at the
+    first step, then the timestamp rules."""
     filt = logits + static
+    if pos - n_prompt < opts.min_new_tokens:
+        filt[:, opts.eot] = float("-inf")
     if opts.suppress_blank and pos == n_prompt:
         filt[:, opts.blank_token] = float("-inf")
         filt[:, opts.eot] = float("-inf")

@@ -280,6 +280,8 @@ class WhisperEngine:
         previous_tokens: Optional[Sequence[int]] = None,
         beam_size: int = 1,
         task: str = "transcribe",
+        min_new_tokens: int = 0,
+        max_new_tokens: Optional[int] = None,
     ):
         """Decode a batch of encoded windows -> (tokens, lengths,
         sum_logprob, no_speech_prob on the device, n_prompt, steps).
@@ -287,14 +289,17 @@ class WhisperEngine:
         block of ``PREV_BLOCK`` slots: pad (EOT, masked), <|startofprev|>,
         then the tail of the previous text. Beam search runs at
         temperature 0 only; a sampled decode draws from a generator seeded
-        with ``rng_seed``."""
+        with ``rng_seed``. EOT is suppressed below ``min_new_tokens``
+        generated tokens, and a window stops at ``min(max_new_tokens or
+        224, n_text_ctx - n_prompt)``, as in the JAX package."""
         b = feats.shape[0]
         prompt_np, valid_np = self._prompt(language, without_timestamps, previous_tokens, task)
         n_prompt = prompt_np.shape[0]
         opts = self._make_opts(
             without_timestamps=without_timestamps,
             temperature=float(temperature),
-            max_new_tokens=min(224, self.dims.n_text_ctx - n_prompt),
+            min_new_tokens=min_new_tokens,
+            max_new_tokens=min(max_new_tokens or 224, self.dims.n_text_ctx - n_prompt),
         )
         prompt_np = np.tile(prompt_np, (b, 1))
         prompt_valid = None
@@ -521,7 +526,10 @@ class WhisperEngine:
             )
             for s_toks, s_start, s_end in new_segments:
                 s_text = self.tokenizer.decode(s_toks)
-                if not s_text.strip():
+                # an open segment begun past the window's audio runs to the
+                # window's end, before its start: its text lies over the
+                # zero padding (the JAX package keeps it)
+                if not s_text.strip() or s_end <= s_start:
                     continue
                 segments.append(
                     Segment(
