@@ -40,11 +40,14 @@ Phases, one line each:
      beam row and 40 left-padded slots, bf16 and f32, both ancestry maps,
      and at cluster sizes 1, 2, 4 and 8;
   4. kernel B (encoder attention) against its plain version at the
-     shapes the paths give it (the medium.en encoder at B=32, B=1 and f32
-     B=4; the wav2vec2 aligner at T=1499 in bf16, and in f32 at phase
-     5b's 2 heads) and at head dims 32, 48, 80 and 128, with SDPA timed
-     beside each shape (in the inputs' dtype) as a yardstick, and its
-     stages, tile and registers;
+     shapes the paths give it (the medium.en encoder at B=32 and B=1 in
+     bf16; f32, split into bf16 parts, at medium.en's B=4 and B=8 and
+     large-v2's B=4 with 20 heads, within 1e-4 and no slower than SDPA at
+     f32 with TF32 off; the wav2vec2 aligner at T=1499 in bf16, and in f32
+     at phase 5b's 2 heads) and at head dims 32, 48, 80 and 128 (128 also
+     at f32), with SDPA timed beside each shape (in the inputs' dtype) as
+     a yardstick, the f32 FMA bound beside the f32 rows, and its stages,
+     tile and registers;
   5. slice parity: the batched pipeline at small dims on the GPU (the
      kernels) against the same pipeline on the CPU (the plain versions),
      greedy and at beam 5;
@@ -147,13 +150,31 @@ Phases, one line each:
      peak memory and each kernel's launches by shape;
   6i. kernels A, B and C against their plain versions at every shape 6h
      launched them at (H=20), SDPA timed beside B;
+  5h. parallel parity: the parallel CLI flow (cli/flow.run_parallel) at
+     small dims on the card, in process (two threads, each on a CUDA
+     stream of its own) and with --subprocess-diarization (the diarizer in
+     a child process), each run's .txt and .srt bytes equal to the card's
+     run_sequential at the same arguments;
+  6j. the parallel CLI flow at full width: diarize_parallel.py's defaults
+     (large-v2 at its published dims, "default", beam 5, batch 4; the
+     aligner in bf16; TitaNet-large and the telephonic MSDD from seeded
+     checkpoints; XLM-R base) at --device auto --no-stem --language en on
+     6f's 5 minutes of four voices: run_sequential (the control), then
+     run_parallel in process (counts zeroed just before and read just
+     after, launches held to the ASR branch's batches, steps and groups),
+     with walls, each branch's stage times, the diarization time the
+     overlap hid, peak memory, launches by shape and whether the bytes
+     equal the control's; then `python3 -m
+     whisper_nemo_tpu_torch.cli.parallel ... --subprocess-diarization` on
+     60 s as a new process; then B (f32 and the bf16 aligner), C, D and E
+     against their plain versions at the shapes both runs launched;
   7. the card's name and power limit, the kernels' JSON line, and last
      {"ok": true, "device": {...}}.
 Any phase that fails raises, and the script exits non-zero without the
 last line. Weights are random from --seed unless $WNT_MODEL_DIR holds
 medium.en.npz, ctc_aligner.npz and (for 6e) the diarization checkpoints;
-phases 5f, 5g, 6f and 6h make their own model directories, with a
-vocabulary whose tokens are words (``word_vocab``).
+phases 5f, 5g, 5h, 6f, 6h and 6j make their own model directories, with
+a vocabulary whose tokens are words (``word_vocab``).
 """
 
 from __future__ import annotations
@@ -181,10 +202,22 @@ import numpy as np
 SR = 16000
 BOUND_A = 5e-3  # |kernel - plain|: outputs are O(1); f32 sums in another order
 BOUND_B = 1e-2  # bf16 P in the PV product vs bf16 normalized weights; bf16 output
+# f32 in and out: split bf16 products drop terms of order 2^-16 of each
+# product, against the plain version's f32 (TF32 off)
+BOUND_B_F32 = 1e-4
 # kernel B's tiling, as the constants of csrc/encoder_attention.cu set it
-KERNEL_B_DESIGN = ("D <= 64: 192-query CTAs of 1 producer warp and 3 consumer warpgroups of 64"
-                   " query rows; 64 < D <= 128: 128-query CTAs of 2 consumer warpgroups at 240"
-                   " registers; 128-key tiles, 2 TMA stages")
+KERNEL_B_DESIGN = ("bf16, D <= 64: 192-query CTAs of 1 producer warp and 3 consumer warpgroups of"
+                   " 64 query rows; bf16 64 < D <= 128 and every f32 instantiation: 128-query"
+                   " CTAs of 2 consumer warpgroups at 240 registers; 128-key tiles, 2 TMA"
+                   " stages (1 at f32 D = 128); f32 as split bf16, hi and lo parts of q, k, v"
+                   " and P, three products per product")
+
+
+def bound_b(dtype) -> float:
+    """Kernel B's bound against its plain version for inputs of ``dtype``."""
+    import torch
+
+    return BOUND_B_F32 if dtype == torch.float32 else BOUND_B
 BOUND_D = 0.0  # one f32 add per state and step and an exact max: bit-equal
 # Kernel E against its plain version: both round the output to bf16 once
 # and sum in f32, in another order; a weight near a bf16 rounding boundary
@@ -1041,12 +1074,14 @@ def phase_kernel_f(seed: int) -> dict:
     return out
 
 
-def kernel_b_bound(B: int, T: int, H: int, out_bytes: int, D: int = HEAD_DIM) -> tuple:
-    """(least time, what bounds it) of one kernel B launch: 4·B·H·T²·D
-    bf16 tensor-core operations, against q, k and v read once in bf16 and
-    the output written once."""
-    by_ops = 4.0 * B * H * T * T * D / BF16_FLOPS * 1e3
-    by_bytes = B * T * H * D * (3 * 2 + out_bytes) / HBM_BYTES_S * 1e3
+def kernel_b_bound(B: int, T: int, H: int, esize: int, D: int = HEAD_DIM) -> tuple:
+    """(least time, what bounds it) of one kernel B launch on inputs of
+    ``esize`` bytes an element: 4·B·H·T²·D operations on the bf16 tensor
+    cores, three times over at f32 (``esize`` 4: the split bf16 products),
+    against q, k and v read once and the output written once."""
+    passes = 3 if esize == 4 else 1
+    by_ops = passes * 4.0 * B * H * T * T * D / BF16_FLOPS * 1e3
+    by_bytes = B * T * H * D * 4 * esize / HBM_BYTES_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
@@ -1054,45 +1089,60 @@ def kernel_b_case(at, B: int, T: int, H: int, dtype, g, D: int = HEAD_DIM) -> di
     """Kernel B against its plain version on seeded ``[B, T, H, D]``
     inputs of ``dtype``, then its time, the plain version's and SDPA's on
     the same operands as ``[B, H, T, D]`` (the yardstick, in the inputs'
-    dtype; it never runs on the port's path)."""
+    dtype; it never runs on the port's path). At f32 the plain version
+    and SDPA run with TF32 off, as the f32 widths compute, and the f32
+    FMA bound (67 TFLOP/s) is returned beside the split bound."""
     import torch
     import torch.nn.functional as F
 
+    from whisper_nemo_tpu_torch.engine.precision import full_f32
+
     dev = torch.device("cuda")
     q, k, v = (torch.randn((B, T, H, D), device=dev, generator=g).to(dtype) for _ in range(3))
-    got = at._encoder_attention_cuda(q, k, v)
-    ref = at._xla_attention(q, k, v)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()) and got.dtype == dtype, "kernel B gave non-finite values")
-    err = float((got.float() - ref.float()).abs().max())
-    del ref
-    reps = max(10, min(200, int(3e4 // B)))
-    ms = cuda_ms(lambda i=0: at._encoder_attention_cuda(q, k, v), reps)
-    plain_ms = cuda_ms(lambda i=0: at._xla_attention(q, k, v), 3)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib_ms = cuda_ms(lambda i=0: F.scaled_dot_product_attention(qt, kt, vt), reps)
+    with full_f32():
+        got = at._encoder_attention_cuda(q, k, v)
+        ref = at._xla_attention(q, k, v)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()) and got.dtype == dtype,
+              "kernel B gave non-finite values")
+        err = float((got.float() - ref.float()).abs().max())
+        del ref
+        reps = max(10, min(200, int(3e4 // B)))
+        ms = cuda_ms(lambda i=0: at._encoder_attention_cuda(q, k, v), reps)
+        plain_ms = cuda_ms(lambda i=0: at._xla_attention(q, k, v), 3)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib_ms = cuda_ms(lambda i=0: F.scaled_dot_product_attention(qt, kt, vt), reps)
     bound_ms, bound_by = kernel_b_bound(B, T, H, got.element_size(), D)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms,
-            "tflops": 4.0 * B * H * T * T * D / ms / 1e9}
+    r = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": lib_ms, "bound": bound_b(dtype),
+         "tflops": 4.0 * B * H * T * T * D / ms / 1e9}
+    if dtype == torch.float32:
+        r["f32_fma_ms"] = 4.0 * B * H * T * T * D / F32_FLOPS * 1e3
+    return r
 
 
 def fmt_b(r: dict) -> str:
     sdpa = (f", SDPA {r['library_ms']:.4f} ms (kernel/SDPA {r['ms'] / r['library_ms']:.2f}x)"
             if r["library_ms"] is not None else "")
-    return (f"max|err| {r['max_abs_err']:.3e} (bound {BOUND_B:g}) | kernel {r['ms']:.4f} ms"
+    fma = (f"; the f32 FMA bound {r['f32_fma_ms']:.4f} ms (kernel at"
+           f" {r['f32_fma_ms'] / r['ms']:.0%} of it)" if "f32_fma_ms" in r else "")
+    return (f"max|err| {r['max_abs_err']:.3e} (bound {r['bound']:g}) | kernel {r['ms']:.4f} ms"
             f" ({r['tflops']:.1f} TFLOP/s), plain {r['plain_ms']:.4f} ms{sdpa} | bound"
-            f" {r['bound_ms']:.4f} ms ({r['bound_by']}), kernel at {r['bound_ms'] / r['ms']:.0%}"
-            " of it")
+            f" {r['bound_ms']:.4f} ms ({r['bound_by']}"
+            f"{', three bf16 passes' if 'f32_fma_ms' in r else ''}), kernel at"
+            f" {r['bound_ms'] / r['ms']:.0%} of it{fma}")
 
 
 def phase_kernel_b(seed: int) -> dict:
     """Kernel B at the shapes the paths give it: the Whisper encoder's (bf16
-    B=32, f32 B=4, and B=1 for the sequential window) and the wav2vec2
+    B=32 and B=1 for the sequential window; f32, the CLI's and the
+    facades' default width, at medium.en's B=4 and B=8 with 16 heads and
+    large-v2's B=4 with 20, the parallel CLI flow's) and the wav2vec2
     aligner's (bf16 B=8, T=1499; f32 at phase 5b's 2 heads); then at head
     dims 32 and 48 (the 64-column instantiation, columns past D filled
     with zeros) and 80 and 128 (the 128-column one), bf16 B=8 T=1500 H=16,
-    and f32 at 128."""
+    and f32 at 128. bf16 within BOUND_B, f32 within BOUND_B_F32; at f32
+    the kernel must not be slower than SDPA (TF32 off)."""
     import torch
 
     from whisper_nemo_tpu_torch.ops import attention as at
@@ -1102,6 +1152,8 @@ def phase_kernel_b(seed: int) -> dict:
     out = {}
     for name, dtype, B, T, H, D in (("whisper", torch.bfloat16, 32, 1500, HEADS, HEAD_DIM),
                                     ("whisper", torch.float32, 4, 1500, HEADS, HEAD_DIM),
+                                    ("whisper", torch.float32, 8, 1500, HEADS, HEAD_DIM),
+                                    ("large-v2", torch.float32, 4, 1500, 20, HEAD_DIM),
                                     ("whisper", torch.bfloat16, 1, 1500, HEADS, HEAD_DIM),
                                     ("wav2vec2", torch.bfloat16, 8, 1499, HEADS, HEAD_DIM),
                                     ("wav2vec2", torch.float32, 8, 1499, 2, HEAD_DIM),
@@ -1112,8 +1164,11 @@ def phase_kernel_b(seed: int) -> dict:
                                     ("head dim", torch.float32, 8, 1500, HEADS, 128)):
         r = kernel_b_case(at, B, T, H, dtype, g, D)
         print(f"[4 kernel B] {name} {str(dtype)[6:]} B={B} T={T} H={H} D={D}: {fmt_b(r)}")
-        check(r["max_abs_err"] <= BOUND_B, f"kernel B {name} {dtype} B={B} D={D}: max|err|"
-              f" {r['max_abs_err']} > {BOUND_B}")
+        check(r["max_abs_err"] <= r["bound"], f"kernel B {name} {dtype} B={B} H={H} D={D}:"
+              f" max|err| {r['max_abs_err']} > {r['bound']}")
+        if dtype == torch.float32:
+            check(r["ms"] <= r["library_ms"], f"kernel B {name} f32 B={B} H={H} D={D}:"
+                  f" {r['ms']:.4f} ms, slower than SDPA at f32 ({r['library_ms']:.4f} ms)")
         if name != "head dim" and dtype == torch.bfloat16 and B > 1:
             out[name] = r
     torch.cuda.empty_cache()
@@ -2578,11 +2633,15 @@ def recording_launches(stack: contextlib.ExitStack) -> dict:
     return seen
 
 
-def run_flow(argv: list, audio_path: str, seconds: float, work: str, what: str) -> dict:
-    """``run_sequential`` on ``argv`` in process from ``work``: every
-    kernel's count set to 0 just before and read just after, each launch's
-    shape recorded (``recording_launches``), each stage timed after a
-    device synchronise. Checks what every width shares: the outputs
+def run_flow(argv: list, audio_path: str, seconds: float, work: str, what: str,
+             parallel: bool = False) -> dict:
+    """``run_sequential`` (``run_parallel`` with ``parallel``, its parser's
+    defaults) on ``argv`` in process from ``work``: every kernel's count
+    set to 0 just before and read just after, each launch's shape recorded
+    (``recording_launches``), each stage timed after a synchronise of the
+    stream it ran on (a branch's own in the parallel flow, so that timing
+    one branch does not wait for the other). Checks what every width
+    shares: the outputs
     (``check_outputs``), C one launch a batch, E each decode step's
     decoder layers, B each batch's encoder layers and each emission
     batch's aligner layers, D one a Viterbi group, F none, the recorded
@@ -2599,7 +2658,9 @@ def run_flow(argv: list, audio_path: str, seconds: float, work: str, what: str) 
     counters = (cross_decode.cross_attention_decode_layered, attention.encoder_attention,
                 mel.log_mel_raw, ctc.viterbi_batch, self_decode.self_attention_decode_ancestry_layered,
                 beam_permute.beam_permute_cache, beam_permute.beam_permute_cache_inplace)
-    sync = torch.cuda.synchronize
+    def sync():
+        torch.cuda.current_stream().synchronize()
+
     calls = {name: [] for name in ("decode", "asr", "align", "diarize", "punct", "merge",
                                    "labels", "model", "aligner")}
     with contextlib.ExitStack() as timing:
@@ -2618,15 +2679,15 @@ def run_flow(argv: list, audio_path: str, seconds: float, work: str, what: str) 
         timing.enter_context(patched(segmented, "align_segments", lambda *a, **kw:
                                      align_call(*a, stats=align_stats, **kw)))
         timing.enter_context(contextlib.chdir(work))
-        args = flow.build_arg_parser().parse_args(argv)
+        args = flow.build_arg_parser(parallel).parse_args(argv)
         for fn in counters:
             fn.launches = 0
-        sync()
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         t0 = time.time()
-        flow.run_sequential(args)
-        sync()
+        (flow.run_parallel if parallel else flow.run_sequential)(args)
+        torch.cuda.synchronize()
         wall = time.time() - t0
         launches = [fn.launches for fn in counters]
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2658,7 +2719,8 @@ def run_flow(argv: list, audio_path: str, seconds: float, work: str, what: str) 
     check(out["words"] == len(words) and out["cues"] > 1,
           f"{what}: the SRT holds {out['words']} of the {len(words)} aligned words")
     secs = {k: sum(t for t, *_ in calls[k]) for k in calls}
-    stages = {"decode": secs["decode"], "ASR": secs["asr"] - secs["decode"],
+    # the parallel flow decodes once before its branches, and run_asr once more
+    stages = {"decode": secs["decode"], "ASR": secs["asr"] - calls["decode"][-1][0],
               "of it the model's set-up": secs["model"], "alignment": secs["align"],
               "diarization": secs["diarize"], "punctuation": secs["punct"],
               "mapping and writers": secs["merge"] - secs["punct"]}
@@ -2769,7 +2831,7 @@ def phase_flow_main(seed: int, smi: str) -> dict:
 def hold_launched_shape(letter: str, shape: tuple, g, seed: int, where: str, tag: str) -> tuple:
     """Kernel A, B or C against its plain version, timed, on seeded inputs
     of a launch's recorded ``shape`` (``recording_launches``' key), within
-    BOUND_A, BOUND_B or BOUND_C and BOUND_C_F64. Prints one line under
+    BOUND_A, BOUND_B (BOUND_B_F32 at f32) or BOUND_C and BOUND_C_F64. Prints one line under
     ``[{tag} kernel X]`` with ``where`` it was launched; returns (a
     description of the shape, the case's numbers)."""
     import torch
@@ -2797,8 +2859,8 @@ def hold_launched_shape(letter: str, shape: tuple, g, seed: int, where: str, tag
         r = kernel_b_case(at, B, T, H, dtype, g, D)
         desc = f"{str(dtype)[6:]} B={B} T={T} H={H} D={D}"
         print(f"[{tag} kernel B] {desc} ({where}): {fmt_b(r)}")
-        check(r["max_abs_err"] <= BOUND_B, f"{tag} kernel B {desc}: max|err|"
-              f" {r['max_abs_err']} > {BOUND_B}")
+        check(r["max_abs_err"] <= r["bound"], f"{tag} kernel B {desc}: max|err|"
+              f" {r['max_abs_err']} > {r['bound']}")
     else:
         (n, samples), n_mels = shape
         waves = torch.from_numpy(speechlike(n * samples / SR, seed).reshape(n, samples))
@@ -2810,18 +2872,22 @@ def hold_launched_shape(letter: str, shape: tuple, g, seed: int, where: str, tag
     return desc, r
 
 
-def phase_flow_kernels(runs: dict, seed: int) -> list:
+def phase_flow_kernels(runs: dict, seed: int, tag: str = "6g",
+                       entry=lambda run, letter: (run == "auto") != (letter == "A"),
+                       label=lambda run: f"the CLI flow, 6f --device {run}") -> list:
     """6g: kernels A to E held against their plain versions at every shape
-    the two in-process runs of 6f launched them at (``recording_launches``),
+    the in-process runs of 6f launched them at (``recording_launches``),
     on seeded inputs of those shapes: A, B and E within BOUND_A, BOUND_B
-    and BOUND_E/BOUND_E_F32, C within BOUND_C and BOUND_C_F64, D bit for
-    bit. Kernel E is held once for each cluster split its wrapper chose,
-    at the largest visible length launched with it and with a beam's runs
-    as the ancestry map; its split is checked to be the one the flow got.
-    Prints each shape's launches in each run and returns the JSON entries
-    of the flow's kernels: B, C, D and E of the --device auto run and A of
-    the --device cuda run (kernel A does not run at auto), one a shape,
-    each with its launches in that run."""
+    (BOUND_B_F32 at f32) and BOUND_E/BOUND_E_F32, C within BOUND_C and
+    BOUND_C_F64, D bit for bit. Kernel E is held once for each cluster
+    split its wrapper chose, at the largest visible length launched with
+    it and with a beam's runs as the ancestry map; its split is checked to
+    be the one the flow got. Prints each shape's launches in each run and
+    returns the JSON entries of the flow's kernels (those ``entry`` picks:
+    by default B, C, D and E of the --device auto run and A of the
+    --device cuda run, as kernel A does not run at auto), one a shape,
+    each with its launches in that run, named by ``label``. Phase 6j's
+    runs take the same holds under its own ``tag``."""
     import torch
 
     from whisper_nemo_tpu_torch.ops import attention as at
@@ -2853,13 +2919,13 @@ def phase_flow_kernels(runs: dict, seed: int) -> list:
     held = {}
     for letter, shape in sorted({k[1:] for k in launches}, key=str):
         if letter in "ABC":
-            desc, r = hold_launched_shape(letter, shape, g, seed + 74, where(letter, shape), "6g")
+            desc, r = hold_launched_shape(letter, shape, g, seed + 74, where(letter, shape), tag)
         elif letter == "D":
             rows, t, n_states = shape
-            check(n_states % 2 == 1, f"6g kernel D: a trellis of {n_states} states")
+            check(n_states % 2 == 1, f"{tag} kernel D: a trellis of {n_states} states")
             desc = f"R={rows} T={t} L={n_states}"
             r = kernel_d_case(rows, t, (n_states - 1) // 2, seed + 75, 0, 20,
-                              f"({where(letter, shape)})", tag="6g kernel D")
+                              f"({where(letter, shape)})", tag=f"{tag} kernel D")
         else:
             dtype, (L, bk, H, D, S), beam, mask_rows, cluster = shape
             n_vis = widest[shape]
@@ -2877,18 +2943,18 @@ def phase_flow_kernels(runs: dict, seed: int) -> list:
             r = kernel_e_case(sd, at, q, k, v, anc, mask, n_vis, 48)
             desc = (f"{str(dtype)[6:]} B·K={bk} S={S} beam {beam}, {mask_rows} mask row(s),"
                     f" cluster {cluster}, at n_visible {n_vis}")
-            print(f"[6g kernel E] {desc}, a beam's runs ({where(letter, shape)}): {fmt_e(r)}")
-            check(r["cluster"] == cluster, f"6g kernel E {desc}: held at cluster {r['cluster']}")
+            print(f"[{tag} kernel E] {desc}, a beam's runs ({where(letter, shape)}): {fmt_e(r)}")
+            check(r["cluster"] == cluster, f"{tag} kernel E {desc}: held at cluster {r['cluster']}")
             del k, v
         held[(letter, shape)] = (desc, r)
         torch.cuda.empty_cache()
 
     entries = []
     for (run, letter, shape), n in launches.items():
-        if (run == "auto") == (letter == "A"):
+        if not entry(run, letter):
             continue
         desc, r = held[(letter, shape)]
-        entries.append(kernel_entry(letter, f"the CLI flow, 6f --device {run}: {desc}", n, r))
+        entries.append(kernel_entry(letter, f"{label(run)}: {desc}", n, r))
     return entries
 
 
@@ -3577,6 +3643,200 @@ def phase_serving_kernels(run: dict, seed: int) -> list:
     return entries
 
 
+# -- the parallel CLI flow (phases 5h and 6j) ---------------------------------
+
+def phase_parallel_parity(seed: int, devices=("cuda",)) -> None:
+    """5h: the parallel CLI flow against the sequential one on
+    ``devices[0]`` at the same arguments and small dims: tiny.en (random,
+    seeded on the device) at ``--device auto`` ("default"; ``--device cpu``
+    for a CPU rehearsal), batch 4, the aligner and the punctuation model at
+    their small dims, the compact seeded TitaNet (no checkpoint, so the
+    child process makes the same one from the same seed), the telephonic
+    MSDD, in a temporary $WNT_MODEL_DIR with the word vocabulary, on 60 s
+    of three voices. ``run_sequential``, then ``run_parallel`` in process
+    (two threads, on the card each on a CUDA stream of its own), then
+    ``run_parallel --subprocess-diarization`` (the diarizer in ``python -m
+    whisper_nemo_tpu_torch.cli.nemo_process``): each parallel run's .txt
+    and .srt bytes must equal the sequential run's. Where they differ,
+    look first for a race between the two streams."""
+    import torch
+
+    from whisper_nemo_tpu_torch.audio import write_wav
+    from whisper_nemo_tpu_torch.cli import flow
+    from whisper_nemo_tpu_torch.models import punctuation
+
+    dev = devices[0]
+    device_flag = "auto" if torch.device(dev).type == "cuda" else dev
+    small_xlmr = functools.partial(punctuation.XlmRobertaDims, **vars(punctuation.SMALL_DIMS))
+    audio = voices(60.0, seed + 60, 3)
+    got, walls = {}, {}
+    with contextlib.ExitStack() as stack:
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        models = os.path.join(tmp, "models")
+        os.makedirs(models)
+        stack.enter_context(model_dir(models))
+        stack.enter_context(env_var("WNT_TEST_SMALL_MODELS", "1"))
+        stack.enter_context(patched(punctuation, "XlmRobertaDims", small_xlmr))
+        flow_trees(models, seed)
+        os.remove(os.path.join(models, "titanet_large.npz"))
+        for name, parallel, extra in (("sequential", False, []), ("in process", True, []),
+                                      ("child diarizer", True, ["--subprocess-diarization"])):
+            work = os.path.join(tmp, name.replace(" ", "_"))
+            os.makedirs(work)
+            path = os.path.join(work, "call.wav")
+            write_wav(path, audio)
+            args = flow.build_arg_parser(parallel).parse_args(
+                ["-a", path, "--whisper-model", "tiny.en", "--batch-size", "4", "--no-stem",
+                 "--device", device_flag, *extra])
+            with contextlib.chdir(work):
+                t0 = time.time()
+                (flow.run_parallel if parallel else flow.run_sequential)(args)
+                walls[name] = time.time() - t0
+            got[name] = check_outputs(os.path.join(work, "call"), 60.0, f"5h {name}")
+            check(not os.path.exists(os.path.join(work, "temp_outputs")),
+                  f"5h {name}: temp_outputs was left behind")
+    check(got["sequential"]["words"] > 20 and len(got["sequential"]["speakers"]) > 1,
+          f"5h: the sequential run wrote {got['sequential']['words']} words of"
+          f" {len(got['sequential']['speakers'])} speakers")
+    for name in ("in process", "child diarizer"):
+        check(got[name]["raw"] == got["sequential"]["raw"],
+              f"5h: the {name} run's .txt or .srt bytes differ from the sequential run's")
+    print(f"[5h parallel parity] tiny.en (random) --batch-size 4 --no-stem --device {device_flag}"
+          f" on {dev}, 60 s of 3 voices: run_sequential {walls['sequential']:.1f} s, run_parallel"
+          f" in process {walls['in process']:.1f} s, with --subprocess-diarization"
+          f" {walls['child diarizer']:.1f} s | .txt and .srt bytes of both parallel runs equal"
+          f" to the sequential run's ({got['sequential']['cues']} cues,"
+          f" {got['sequential']['words']} words, {len(got['sequential']['speakers'])} speakers)")
+
+
+def fmt_shapes(shapes: dict) -> str:
+    """Each kernel's recorded launches by shape (``recording_launches``);
+    kernel E's summed over the visible lengths of one cache shape."""
+    parts = []
+    for letter, seen in shapes.items():
+        if letter == "E":
+            groups = collections.Counter()
+            for key, n in seen.items():
+                groups[key[:-1]] += n
+            seen = groups
+        if seen:
+            parts.append(f"{letter}: " + ", ".join(f"{key} x {n}" for key, n in seen.items()))
+    return "; ".join(parts)
+
+
+# 6j: diarize_parallel.py's defaults (large-v2, batch 4) at --device auto and
+# --no-stem; English named, as random weights detect an arbitrary language
+PARALLEL_ARGV = ["--no-stem", "--device", "auto", "--language", "en"]
+
+
+def phase_parallel_main(seed: int, smi: str) -> tuple:
+    """6j: the parallel CLI flow at full width, diarize_parallel.py's
+    defaults at ``--device auto --no-stem`` (Whisper large-v2 at its
+    published dims, "default": f32, the float cross-KV, kernel B's split
+    f32 path on every encoder layer; beam 5, batch 4; the MMS-300M-sized
+    aligner in bf16; TitaNet-large and the telephonic MSDD from seeded
+    checkpoints; XLM-R base), ``--language en`` (random weights), on phase
+    6f's audio (FLOW_SECONDS of four voices). Three runs, each from its
+    own directory: ``run_sequential`` at the same arguments, the control;
+    ``run_parallel`` in process (``run_flow``: counts zeroed just before
+    and read just after, each launch's shape recorded, the launches held
+    to the ASR branch's batches, steps and groups, so the diarizer
+    launched none); then ``python3 -m whisper_nemo_tpu_torch.cli.parallel
+    -a <CLI_SECONDS wav> --no-stem --language en --subprocess-diarization``
+    as a new process (exit 0, both files well formed). Prints the walls
+    and seconds per audio hour, each branch's stage times, the
+    diarization time the overlap hid (the control's stage sum minus the
+    parallel wall), peak device memory, each kernel's launches by shape,
+    and whether the parallel run's bytes equal the control's. Then the
+    kernels at the shapes both runs launched (``phase_flow_kernels``
+    under 6j). Returns (both runs, the JSON entries of the parallel run's
+    kernels)."""
+    import torch
+
+    from whisper_nemo_tpu_torch.audio import write_wav
+    from whisper_nemo_tpu_torch.diarize import pipeline
+    from whisper_nemo_tpu_torch.engine.checkpoint import save_params
+    from whisper_nemo_tpu_torch.models import msdd, titanet
+
+    runs = {}
+    with contextlib.ExitStack() as stack:
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        models = os.path.join(tmp, "models")
+        os.makedirs(models)
+        stack.enter_context(model_dir(models))
+        g = torch.Generator().manual_seed(seed + 70)
+        save_params(os.path.join(models, "titanet_large.npz"),
+                    titanet.init_titanet_params(pipeline._TITANET_LARGE, "cpu", g))
+        save_params(os.path.join(models, "diar_msdd_telephonic.npz"),
+                    msdd.init_msdd_params(msdd.MsddDims(), "cpu", g))
+        write_word_vocab(models, multilingual=True)
+        audio = voices(FLOW_SECONDS, seed + 71, 4)
+        for name, parallel, argv in (
+                ("sequential", False, ["--whisper-model", "large-v2", "--batch-size", "4"]),
+                ("in process", True, [])):
+            work = os.path.join(tmp, name.replace(" ", "_"))
+            os.makedirs(work)
+            path = os.path.join(work, "call.wav")
+            write_wav(path, audio)
+            r = runs[name] = run_flow(["-a", path, *argv, *PARALLEL_ARGV], path, FLOW_SECONDS,
+                                      work, f"6j {name}", parallel=parallel)
+            check(r["dtype"] == torch.float32 and r["kv_bits"] is None
+                  and r["layers"][:2] == (32, 32), f"6j {name}: not large-v2 at \"default\"")
+            check(r["launches"]["a"] == 0, f"6j {name}: kernel A launched {r['launches']['a']}"
+                  f" times over the float cross-KV")
+            torch.cuda.empty_cache()
+        seq, par = runs["sequential"], runs["in process"]
+        check(par["launches"] == seq["launches"] and par["shapes"] == seq["shapes"],
+              f"6j: the parallel run launched {par['launches']}, the control {seq['launches']}")
+
+        user = os.path.join(tmp, "user")
+        os.makedirs(user)
+        user_path = os.path.join(user, "cli.wav")
+        write_wav(user_path, voices(CLI_SECONDS, seed + 72, 4))
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "whisper_nemo_tpu_torch.cli.parallel", "-a", user_path,
+             "--no-stem", "--language", "en", "--subprocess-diarization"], cwd=user,
+            capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))})
+        cli_s = time.time() - t0
+        check(proc.returncode == 0, f"6j: the parallel CLI exited {proc.returncode}:"
+              f" {proc.stderr[-2000:]}")
+        cli = check_outputs(os.path.splitext(user_path)[0], CLI_SECONDS, "6j CLI")
+        check(not os.path.exists(os.path.join(user, "temp_outputs")),
+              "6j CLI: temp_outputs was left behind")
+
+    stage_sum = sum(v for k, v in seq["stages"].items() if k != "of it the model's set-up")
+    st = par["stages"]
+    setup = st["of it the model's set-up"]
+    asr_branch = st["ASR"] + st["alignment"]
+    print(f"[6j parallel flow] {smi} | run_sequential --whisper-model large-v2 --batch-size 4"
+          f" {' '.join(PARALLEL_ARGV)} on {FLOW_SECONDS:.0f} s of four voices (the control):"
+          f" {fmt_flow(seq, FLOW_SECONDS)}")
+    print(f"[6j parallel flow] {smi} | run_parallel {' '.join(PARALLEL_ARGV)} (its defaults:"
+          f" large-v2, batch 4) in process: {fmt_flow(par, FLOW_SECONDS)}")
+    print(f"[6j parallel flow] walls: control {seq['wall']:.2f} s"
+          f" ({seq['wall'] / FLOW_SECONDS * 3600:.1f} s per audio hour), parallel"
+          f" {par['wall']:.2f} s ({par['wall'] / FLOW_SECONDS * 3600:.1f}) | the ASR branch:"
+          f" ASR {st['ASR']:.3f} s (model set-up {setup:.3f})"
+          f" + alignment {st['alignment']:.3f} = {asr_branch:.3f} s; the diarization branch"
+          f" {st['diarization']:.3f} s (control {seq['stages']['diarization']:.3f}) | hidden by"
+          f" the overlap: control stage sum {stage_sum:.3f} - parallel wall {par['wall']:.3f} ="
+          f" {stage_sum - par['wall']:.3f} s | peak device memory {par['peak']:.2f} GiB"
+          f" (control {seq['peak']:.2f}) | .txt and .srt bytes"
+          f" {'equal to' if par['out']['raw'] == seq['out']['raw'] else 'differ from'} the"
+          f" control's | launches by shape: {fmt_shapes(par['shapes'])}")
+    print(f"[6j parallel flow] {smi} | python3 -m whisper_nemo_tpu_torch.cli.parallel -a"
+          f" <{CLI_SECONDS:.0f} s wav> --no-stem --language en --subprocess-diarization: exit 0"
+          f" in {cli_s:.1f} s (a new process and its diarizer child: imports, every model's"
+          f" set-up and the kernels' loads included) | {cli['cues']} cues,"
+          f" {len(cli['speakers'])} speakers")
+    entries = phase_flow_kernels(runs, seed + 5, tag="6j",
+                                 entry=lambda run, letter: run == "in process",
+                                 label=lambda run: "the parallel CLI flow, 6j in process")
+    return runs, entries
+
+
 def titanet_flops_per_frame(dims) -> float:
     """Multiply-adds x 2 of TitaNet's convs and pooling GEMMs per frame."""
     c = dims.filters
@@ -3628,6 +3888,7 @@ def main() -> int:
     phase_diar_parity(args.seed)
     phase_flow_parity(args.seed)
     phase_serving_parity(args.seed)
+    phase_parallel_parity(args.seed)
     main_run = phase_main_path(args.seed)
     phase_stage_times(main_run, a, e)
     phase_align_stage_times(main_run, d["a"])
@@ -3637,6 +3898,7 @@ def main() -> int:
     phase_diar_main(args.seed)
     flow_entries = phase_flow_kernels(phase_flow_main(args.seed, smi), args.seed)
     serving_entries = phase_serving_kernels(phase_serving_main(args.seed, smi), args.seed)
+    _, parallel_entries = phase_parallel_main(args.seed, smi)
 
     import torch
 
@@ -3703,6 +3965,9 @@ def main() -> int:
         # the serving handler at full width (6h): A, B and C at each shape it launched them at
         # (6i), with their launches there
         *serving_entries,
+        # the parallel CLI flow at full width (6j, in process): B (f32 split and the bf16
+        # aligner), C, D and E at each shape it launched them at, with their launches there
+        *parallel_entries,
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

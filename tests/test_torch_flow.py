@@ -25,10 +25,25 @@ which can flip a near-tie among the random weights' steps; at f32 they
 agree to about 1e-4. The dense labels of two eigensolvers agree only where
 the Laplacian's eigengap is clear, so the port's ``stats["eigengap"]`` is
 asserted above 1e-3 first (0.41 on this audio at these widths).
+
+The port's ``run_parallel`` runs twice at the same arguments. In process
+(its two branches in threads) it must write the JAX sequential flow's
+bytes: the JAX package's parallel flow on one device computes what its
+sequential flow computes. With ``--subprocess-diarization`` the diarizer
+runs in a child process, which the monkeypatches of this process do not
+reach: its model directory holds TitaNet as a converted Jasper stack
+(``conv_asr``) with the ``titanet_large.cfg.json`` sidecar that both
+packages read, so the child builds it at the test's dims. Its reference
+is the JAX flow on that directory: the JAX sequential run's words (ASR
+and alignment read no diarizer checkpoint) with the JAX diarizer's turns
+on that directory, through the JAX flow's ``_merge_and_write``. The
+child runs on one torch thread (``OMP_NUM_THREADS``), as this process.
 """
 
 import argparse
+import dataclasses
 import functools
+import json
 import os
 import shutil
 import subprocess
@@ -43,11 +58,13 @@ import whisper_nemo_tpu_torch.cli.flow as flow
 import whisper_nemo_tpu_torch.diarize.pipeline as pipeline
 import whisper_nemo_tpu_torch.models.punctuation as punctuation
 from chip_smoke import DIAR_GAP, write_word_vocab
-from test_torch_diarize_models import MSDD, TITANET, _one_blas_thread, _seeded_tree  # noqa: F401
+from test_torch_diarize_models import (  # noqa: F401  (_one_blas_thread: autouse)
+    JASPER, MSDD, N_MELS, TITANET, _one_blas_thread, _seeded_tree)
 from test_torch_diarize_pipeline import PORT_TITANET
 from test_torch_post import OPUS, REPO, port_decoder  # noqa: F401  (a fixture)
 from test_torch_slice import DIMS, _one_torch_thread, built_decoder  # noqa: F401  (autouse; a fixture)
 from whisper_nemo_tpu.engine.checkpoint import save_params
+from whisper_nemo_tpu.models import conv_asr as jax_conv_asr
 from whisper_nemo_tpu.models import msdd as jax_msdd
 from whisper_nemo_tpu.models import titanet as jax_titanet
 from whisper_nemo_tpu.models import wav2vec2 as jax_w2v
@@ -96,10 +113,15 @@ def model_dir(tmp_path_factory):
 def flows(model_dir, port_decoder, tmp_path_factory):  # noqa: F811
     """Each flow's output bytes and working directory, and the port's
     diarizer stats and punctuation rows."""
-    stats, rows = {}, []
-    out = {"stats": stats, "rows": rows}
+    stats, rows, jax_words = {}, [], []
+    out = {"stats": stats, "rows": rows, "jax_words": jax_words}
     waveform_call = pipeline.NeuralDiarizer.diarize_waveform
     apply_labels = flow.apply_punctuation_labels
+    jax_alignment = jax_flow.run_alignment
+
+    def run_alignment(audio, transcript, language, *args, **kw):
+        jax_words.append((jax_alignment(audio, transcript, language, *args, **kw), language))
+        return jax_words[-1][0]
 
     def diarize_waveform(self, audio, **kw):
         return waveform_call(self, audio, stats=stats, **kw)
@@ -111,6 +133,7 @@ def flows(model_dir, port_decoder, tmp_path_factory):  # noqa: F811
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pipeline.NeuralDiarizer, "diarize_waveform", diarize_waveform)
         mp.setattr(flow, "apply_punctuation_labels", apply_punctuation_labels)
+        mp.setattr(jax_flow, "run_alignment", run_alignment)
         for name, module in (("port", flow), ("jax", jax_flow)):
             work = tmp_path_factory.mktemp(f"flow_{name}")
             shutil.copy(OPUS, work / "call.opus")
@@ -121,6 +144,64 @@ def flows(model_dir, port_decoder, tmp_path_factory):  # noqa: F811
                 domain="telephonic"))
             out[name] = {"txt": (work / "call.txt").read_bytes(),
                          "srt": (work / "call.srt").read_bytes(), "work": work}
+    return out
+
+
+def _args(audio, **kw):
+    return argparse.Namespace(
+        audio=str(audio), stemming=False, suppress_numerals=False, model_name="tiny.en",
+        batch_size=2, language="en", device="cpu", domain="telephonic", **kw)
+
+
+def _jasper_dir(model_dir, tmp):
+    """``model_dir``'s checkpoints with TitaNet as a seeded converted Jasper
+    stack at the test's dims and its ``.cfg.json`` sidecar."""
+    for name in os.listdir(model_dir):
+        if name != "titanet_large.npz":
+            os.symlink(model_dir / name, tmp / name)
+    save_params(str(tmp / "titanet_large.npz"), _seeded_tree(
+        lambda key: jax_conv_asr.init_conv_asr_params(key, JASPER, N_MELS, emb_dim=20,
+                                                      attn_hidden=16), seed=14))
+    (tmp / "titanet_large.cfg.json").write_text(json.dumps(
+        {"blocks": [dataclasses.asdict(c) for c in JASPER], "n_mels": N_MELS, "emb_dim": 20}))
+    return tmp
+
+
+@pytest.fixture(scope="module")
+def parallel_flows(model_dir, flows, tmp_path_factory):
+    """The bytes of the port's ``run_parallel`` in process (on
+    ``model_dir``) and with ``--subprocess-diarization`` (on the Jasper
+    directory), the JAX reference of the latter, and the port's eigengap
+    on that directory."""
+    out = {}
+    jasper = _jasper_dir(model_dir, tmp_path_factory.mktemp("flow_jasper_models"))
+    with pytest.MonkeyPatch.context() as mp:
+        for name, directory, child in (("in_process", model_dir, False),
+                                       ("subprocess", jasper, True)):
+            work = tmp_path_factory.mktemp(f"flow_parallel_{name}")
+            shutil.copy(OPUS, work / "call.opus")
+            mp.chdir(work)
+            mp.setenv("WNT_MODEL_DIR", str(directory))
+            mp.setenv("OMP_NUM_THREADS", "1")
+            flow.run_parallel(_args(work / "call.opus", subprocess_diarization=child))
+            out[name] = {"txt": (work / "call.txt").read_bytes(),
+                         "srt": (work / "call.srt").read_bytes(), "work": work}
+
+        work = tmp_path_factory.mktemp("flow_jasper_jax")
+        shutil.copy(OPUS, work / "call.opus")
+        mp.chdir(work)
+        audio = jax_flow.fw.decode_audio(str(work / "call.opus"))
+        turns = jax_flow.run_diarization(audio, str(work / "temp_outputs"))
+        words, language = flows["jax_words"][0]
+        jax_flow._merge_and_write(words, turns, language, str(work / "call.opus"))
+        out["jax_jasper"] = {"txt": (work / "call.txt").read_bytes(),
+                             "srt": (work / "call.srt").read_bytes()}
+        stats = {}
+        diarizer = pipeline.NeuralDiarizer(flow.create_config(str(work / "probe"), "telephonic"),
+                                           device="cpu")
+        assert diarizer._spk_cfgs is not None
+        diarizer.diarize_waveform(audio, stats=stats)
+        out["jasper_stats"] = stats
     return out
 
 
@@ -152,3 +233,33 @@ def test_cli_entry_point_runs():
     assert proc.returncode == 0, proc.stderr
     assert "--whisper-model" in proc.stdout and "--device" in proc.stdout
     assert all(flag in proc.stdout for flag in ("--no-stem", "--batch-size", "--domain"))
+
+
+@pytest.mark.parametrize("module,flags", [
+    ("whisper_nemo_tpu_torch.cli.parallel", ("--subprocess-diarization", "--whisper-model")),
+    ("whisper_nemo_tpu_torch.cli.nemo_process", ("--audio", "--device", "--domain"))])
+def test_parallel_entry_points_run(module, flags):
+    proc = subprocess.run([sys.executable, "-m", module, "--help"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert all(flag in proc.stdout for flag in flags)
+
+
+def test_parallel_flow_in_process_writes_the_jax_flows_bytes(flows, parallel_flows):
+    """``run_parallel`` with its branches in two threads of this process."""
+    assert parallel_flows["in_process"]["srt"] == flows["jax"]["srt"]
+    assert parallel_flows["in_process"]["txt"] == flows["jax"]["txt"]
+    assert sorted(os.listdir(parallel_flows["in_process"]["work"])) == [
+        "call.opus", "call.srt", "call.txt"]
+
+
+def test_parallel_flow_with_a_child_diarizer_writes_the_jax_flows_bytes(parallel_flows):
+    """``run_parallel --subprocess-diarization``: the child process
+    (``python -m whisper_nemo_tpu_torch.cli.nemo_process``) diarizes with
+    the converted Jasper TitaNet it reads at its own dims."""
+    stats = parallel_flows["jasper_stats"]
+    assert stats["path"] == "dense" and stats["eigengap"] > DIAR_GAP
+    got, want = parallel_flows["subprocess"], parallel_flows["jax_jasper"]
+    assert got["srt"] == want["srt"] and got["txt"] == want["txt"]
+    assert len(want["srt"].decode("utf-8-sig").strip().split("\n\n")) > 1
+    assert sorted(os.listdir(got["work"])) == ["call.opus", "call.srt", "call.txt"]

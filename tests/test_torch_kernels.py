@@ -352,27 +352,65 @@ def test_kernels_match_plain_on_cuda(cuda_device, bits, windows, beam, kp, k_len
 def test_encoder_attention_kernel_matches_plain_on_cuda(cuda_device, t, b, h, dtype):
     """Kernel B against its plain version on the card: lengths around the
     128-row tiles (ragged query and key tiles, one key), batch 1 and 3,
-    3 and 16 heads; bf16 in and out, and f32 in (rounded to bf16 for the
-    tensor cores) with f32 out. Inputs are N(0, 1), so the outputs' RMS
-    falls from 1 at T=1 to about sqrt(e/T), 0.043 at T=1500, and the
-    absolute bound 1e-2 is a quarter of that; so the error is also held
-    within 0.2 of the outputs' RMS at every T. Both come from the
-    rounding: bf16 P in the PV product against bf16 normalized weights,
-    q and k rounded to bf16 after the D^-1/4 scale in the plain version,
-    bf16 outputs (an emulation of the kernel's rounding on the CPU reads
-    at most 0.09 of the RMS at these shapes)."""
+    3 and 16 heads; bf16 in and out, and f32 in and out. bf16: inputs are
+    N(0, 1), so the outputs' RMS falls from 1 at T=1 to about sqrt(e/T),
+    0.043 at T=1500, and the absolute bound 1e-2 is a quarter of that; so
+    the error is also held within 0.2 of the outputs' RMS at every T. Both
+    come from the rounding: bf16 P in the PV product against bf16
+    normalized weights, q and k rounded to bf16 after the D^-1/4 scale in
+    the plain version, bf16 outputs (an emulation of the kernel's rounding
+    on the CPU reads at most 0.09 of the RMS at these shapes). f32: the
+    kernel's split bf16 products (hi and lo parts of q, k, v and P) leave
+    terms of order 2^-16 of each product, held within 1e-4 of the plain
+    version's f32 with TF32 off."""
     g = torch.Generator(device=cuda_device).manual_seed(t * 7 + b * 3 + h)
     q, k, v = (torch.randn((b, t, h, 64), device=cuda_device, generator=g).to(dtype)
                for _ in range(3))
     launches = attention.encoder_attention.launches
     got = attention.encoder_attention(q, k, v)
-    want = attention._xla_attention(q, k, v)
+    want = _f32_plain(q, k, v)
     torch.cuda.synchronize()
     assert attention.encoder_attention.launches == launches + 1
     assert got.dtype == dtype and got.shape == want.shape
+    _hold_kernel_b(got, want, dtype)
+
+
+def _f32_plain(q, k, v):
+    """Kernel B's plain version with TF32 off (the f32 widths' setting)."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return attention._xla_attention(q, k, v)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _hold_kernel_b(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        return
     torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=0)
     err = float((got.float() - want.float()).abs().max())
     assert err <= 0.2 * float(want.float().pow(2).mean().sqrt()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h", [(4, 16), (8, 16), (4, 20)])
+def test_encoder_attention_f32_on_cuda(cuda_device, b, h):
+    """Kernel B at f32 at the encoders' T = 1500 (medium.en's 16 heads at
+    batch 4 and 8, large-v2's 20 at batch 4) on N(0, 1) inputs, within
+    1e-4 of the plain version's f32 (TF32 off); one launch a call. The
+    split's error is relative: of order 2^-16 of |q||k| in each logit and
+    of |v| in the output."""
+    g = torch.Generator(device=cuda_device).manual_seed(b * 100 + h)
+    q, k, v = (torch.randn((b, 1500, h, 64), device=cuda_device, generator=g)
+               for _ in range(3))
+    launches = attention.encoder_attention.launches
+    got = attention.encoder_attention(q, k, v)
+    want = _f32_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.encoder_attention.launches == launches + 1
+    _hold_kernel_b(got, want, torch.float32)
 
 
 def _viterbi_random(r, t, n_states, seed, ties):
@@ -543,18 +581,17 @@ def test_self_decode_kernel_shapes_on_cuda(cuda_device, dtype, beam, windows, s,
 def test_encoder_attention_head_dims_on_cuda(cuda_device, d, t, dtype):
     """Kernel B at head dims other than 64: 32 and 48 on the 64-column
     instantiation (the columns past D zero-filled by TMA), 80 and 128 on
-    the 128-column one; held as the D = 64 test holds it (1e-2, and 0.2
-    of the outputs' RMS). A head dim past 128 raises, naming ROADMAP."""
+    the 128-column one (one K/V stage at f32); held as the D = 64 test
+    holds it (bf16: 1e-2, and 0.2 of the outputs' RMS; f32: 1e-4). A head
+    dim past 128 raises, naming ROADMAP."""
     g = torch.Generator(device=cuda_device).manual_seed(t * 7 + d)
     q, k, v = (torch.randn((2, t, 3, d), device=cuda_device, generator=g).to(dtype)
                for _ in range(3))
     got = attention.encoder_attention(q, k, v)
-    want = attention._xla_attention(q, k, v)
+    want = _f32_plain(q, k, v)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
-    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=0)
-    err = float((got.float() - want.float()).abs().max())
-    assert err <= 0.2 * float(want.float().pow(2).mean().sqrt()), err
+    _hold_kernel_b(got, want, dtype)
     wide = torch.zeros((1, 8, 2, 136), device=cuda_device, dtype=dtype)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention.encoder_attention(wide, wide, wide)

@@ -221,17 +221,18 @@ def test_gpu_devices_refuse_without_cuda(monkeypatch, device):
 
 
 def test_what_the_flow_does_not_port_is_refused(monkeypatch, tmp_path):
-    """The parallel flow and a mesh (flag or WNT_MESH) name item 6;
+    """A mesh (flag or WNT_MESH) names item 6b, in both flows, before any
+    stage runs: the parallel flow itself runs (tests/test_torch_flow.py);
     stemming with htdemucs.npz installed names item 5, and without it warns
     and keeps the original audio, as the JAX flow does."""
     monkeypatch.delenv("WNT_MESH", raising=False)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        flow.run_parallel(_args())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        flow.run_sequential(_args(mesh="dp=2"))
+    for run in (flow.run_sequential, flow.run_parallel):
+        with pytest.raises(NotImplementedError, match="item 6b"):
+            run(_args(mesh="dp=2"))
     monkeypatch.setenv("WNT_MESH", "dp")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        flow.run_sequential(_args())
+    for run in (flow.run_sequential, flow.run_parallel):
+        with pytest.raises(NotImplementedError, match="item 6b"):
+            run(_args())
     monkeypatch.setenv("WNT_MODEL_DIR", str(tmp_path))
     assert flow.maybe_separate_vocals("a.wav", True) == "a.wav"
     assert flow.maybe_separate_vocals("a.wav", False) == "a.wav"

@@ -263,7 +263,9 @@ def test_port_imports_no_jax():
             "whisper_nemo_tpu_torch.serving.__init__", "whisper_nemo_tpu_torch.serving.scheduler",
             "whisper_nemo_tpu_torch.serving.handler", "whisper_nemo_tpu_torch.serving.schemas",
             "whisper_nemo_tpu_torch.serving.download", "whisper_nemo_tpu_torch.utils.monitor",
-            "whisper_nemo_tpu_torch.utils.profiling"} <= set(modules)
+            "whisper_nemo_tpu_torch.utils.profiling", "whisper_nemo_tpu_torch.parallel.branch",
+            "whisper_nemo_tpu_torch.cli.parallel", "whisper_nemo_tpu_torch.cli.nemo_process"
+            } <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"

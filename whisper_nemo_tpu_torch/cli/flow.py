@@ -16,8 +16,10 @@ and SRT writers -> cleanup. Same flags, defaults and compute widths
 - Punctuation: only a model that cannot be read (``tokenizers`` missing,
   an unreadable checkpoint) falls back to the original punctuation; any
   other error raises, where the JAX flow catches every exception.
-- ``--mesh`` / ``WNT_MESH`` and the parallel flow raise: they need
-  more than one device.
+- ``--mesh`` / ``WNT_MESH`` raise: a device mesh needs more than one
+  GPU. ``run_parallel`` runs on one card, its two branches on streams of
+  their own (``parallel/branch.py``), or with ``--subprocess-diarization``
+  the diarizer in a child process (``cli/nemo_process.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import subprocess
+import sys
+import tempfile
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -63,7 +68,7 @@ logger = get_logger(__name__)
 # whole ("tpu" is never read here, since resolve_device refuses that device)
 mtypes = {"cpu": "int8", "cuda": "float16", "tpu": "int8", "auto": "default"}
 
-_MULTI_DEVICE = "not ported yet (ROADMAP.md queue 1, item 6: it needs more than one device)"
+_MULTI_DEVICE = "not ported yet (ROADMAP.md queue 1, item 6b: it needs more than one GPU)"
 
 
 def build_arg_parser(parallel: bool = False) -> argparse.ArgumentParser:
@@ -394,7 +399,80 @@ def _merge_and_write(word_timestamps, speaker_ts, language, audio_path, device="
 
 
 def run_parallel(args) -> None:
-    """The branch-parallel flow (reference diarize_parallel.py) runs the
-    diarization branch beside ASR on other devices or in a child
-    process; neither is ported."""
-    raise NotImplementedError(f"the parallel flow is {_MULTI_DEVICE}")
+    """The branch-parallel flow (reference diarize_parallel.py): the
+    diarization branch runs beside ASR and alignment. In process, the two
+    branches run in threads through ``parallel.branch.asr_and_diarization``
+    (on one card each on a CUDA stream of its own; with more cards,
+    diarization on the last). With ``--subprocess-diarization``, a child
+    process (``python -m whisper_nemo_tpu_torch.cli.nemo_process``, the
+    reference's mechanism) diarizes while the parent runs ASR and
+    alignment; the join checks its exit code and reads its RTTM. Then the
+    mapping, punctuation and writers, as ``run_sequential``."""
+    _refuse_mesh(args)
+    device = resolve_device(args.device)
+    compute = mtypes.get(args.device, "default")
+    language = process_language_arg(args.language, args.model_name)
+    temp_path = os.path.join(os.getcwd(), "temp_outputs")
+
+    vocal_target = maybe_separate_vocals(args.audio, args.stemming)
+    audio = fw.decode_audio(vocal_target)
+
+    def asr_branch(devices):
+        dev = str(devices[0])
+        with stage_timer("asr", logger):
+            asr = run_asr(vocal_target, args.model_name, args.batch_size, language,
+                          args.suppress_numerals, dev, compute)
+        with stage_timer("alignment", logger):
+            word_timestamps = run_alignment(audio, asr.full_transcript, asr.language,
+                                            args.batch_size, dev, timed_segments=asr.segments)
+        return asr, word_timestamps
+
+    if getattr(args, "subprocess_diarization", False):
+        package_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (package_root, env.get("PYTHONPATH")) if p)
+        # the child's stderr goes to a file: a pipe left unread while ASR
+        # runs would stall the child once its buffer fills
+        with tempfile.TemporaryFile() as err:
+            child = subprocess.Popen(
+                [sys.executable, "-m", "whisper_nemo_tpu_torch.cli.nemo_process",
+                 "-a", vocal_target, "--device", args.device, "--domain", args.domain],
+                stderr=err, env=env,
+            )
+            try:
+                asr, word_timestamps = asr_branch([torch.device(device)])
+            except BaseException:
+                child.kill()
+                raise
+            finally:
+                child.wait()
+            if child.returncode != 0:
+                err.seek(0)
+                raise RuntimeError(
+                    "Diarization branch (child process) failed:\n"
+                    + err.read().decode(errors="replace")
+                )
+        from ..diarize import read_speaker_timestamps
+
+        speaker_ts = read_speaker_timestamps(
+            os.path.join(temp_path, "pred_rttms", "mono_file.rttm"))
+    else:
+        from ..parallel.branch import asr_and_diarization
+
+        def diar_branch(devices):
+            with stage_timer("diarization", logger):
+                return run_diarization(
+                    audio, temp_path, args.domain,
+                    num_speakers=getattr(args, "num_speakers", None),
+                    max_speakers=getattr(args, "max_speakers", None),
+                    device=str(devices[0]),
+                )
+
+        # "cuda" spreads the branches over every visible card; a named
+        # device holds both
+        (asr, word_timestamps), speaker_ts = asr_and_diarization(
+            asr_branch, diar_branch,
+            devices=None if device == "cuda" else [torch.device(device)])
+
+    _merge_and_write(word_timestamps, speaker_ts, asr.language, args.audio, device)
+    cleanup(temp_path)

@@ -6,8 +6,8 @@
 // masked by segment ids).
 //
 // out[b, t, h, :] = softmax_s(q[b, t, h, :] . k[b, s, h, :] / sqrt(D)) v[b, s, h, :]
-// on [B, T, H, D] bf16 tensors, D a multiple of 8 up to 128; the output in
-// bf16 or f32.
+// on [B, T, H, D] tensors, D a multiple of 8 up to 128: bf16 in and out, or
+// f32 in and out computed to f32 accuracy (below).
 //
 // Bound: tensor-core FLOPs. At the encoder's T = 1500 each (b, h) does
 // 4*T*T*D = 576 MFLOP over 768 KB of bf16 operands, far above the card's
@@ -46,6 +46,22 @@
 // neither Q K^T nor the first D output columns, and only those are stored.
 // The softmax scale is D^-1/2 of the true D, passed in.
 //
+// f32 inputs (the f32 widths' encoder) are computed as split bf16
+// ("bf16x3"): a first kernel splits each of q, k and v into bf16 parts
+// x = hi + lo + r, hi = bf16(x), lo = bf16(x - hi), |r| <= 2^-16 |x|, into a
+// scratch buffer that TMA reads through tensor maps of its own; then
+// S = Qh Kh^T + Qh Kl^T + Ql Kh^T into the same f32 accumulators, the
+// softmax in f32 as above, P split in registers into Ph + Pl, and
+// O += Ph Vh + Ph Vl + Pl Vh (V's parts MN-major, as in the bf16 path:
+// TF32 wgmma takes no MN-major operand, bf16 parts keep the transpose
+// bit). The dropped lo*lo products and r are of order 2^-16 of each
+// product, so the result holds to about 1e-5 of the f32 computation where
+// one bf16 pass is 2e-3 off. Three times the tensor-core work: the bound
+// is three bf16 passes. The split instantiation holds both parts of every
+// tile, so it runs two consumer warpgroups (128 queries a CTA, 240
+// registers for the split P), and at kD = 128 one K/V stage (192 KB of
+// shared memory; two stages would need 320).
+//
 // The tensor maps are encoded on the host in the C entry point, with
 // cuTensorMapEncodeTiled looked up through cudaGetDriverEntryPointByVersion,
 // so the library needs no -lcuda.
@@ -56,31 +72,43 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <type_traits>
+
 namespace {
 
 constexpr int kBN = 128;        // keys per tile
-constexpr int kStages = 2;      // K/V ring depth
 
-// The instantiation of head dim kD: consumer warpgroups and their registers
-template <int kD>
+// The instantiation of head dim kD, bf16 (kSplit false) or split f32 inputs:
+// bf16 parts per operand, consumer warpgroups and their registers, K/V stages
+template <int kD, bool kSplit>
 struct Cfg {
+  static constexpr int kParts = kSplit ? 2 : 1;  // hi (and lo) of each operand
   static constexpr int kHalves = kD / 64;  // 64-column boxes (128-byte rows) per tile row
-  static constexpr int kConsumers = kD == 64 ? 3 : 2;  // 64 query rows each
+  static constexpr int kConsumers = (kD == 64 && !kSplit) ? 3 : 2;  // 64 query rows each
   static constexpr int kBM = 64 * kConsumers;          // queries per CTA
   static constexpr int kThreads = 128 * (1 + kConsumers);
-  static constexpr int kConsumerRegs = kD == 64 ? 160 : 240;
-  static constexpr uint32_t kTileBytes = kBN * kD * 2;  // one K or V tile
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;
+  static constexpr int kStages = (kD == 128 && kSplit) ? 1 : 2;  // K/V ring depth
+  static constexpr uint32_t kTileBytes = kBN * kD * 2;  // one part of one K or V tile
 };
 
-template <int kD>
+template <int kD, bool kSplit>
 struct Smem {  // 1024-byte aligned: the 128-byte swizzle's atom
-  // each tile as kHalves boxes of [rows][64], one after the other
-  __nv_bfloat16 q[Cfg<kD>::kHalves][Cfg<kD>::kBM * 64];  // kConsumers x 64 rows
-  __nv_bfloat16 k[kStages][Cfg<kD>::kHalves][kBN * 64];
-  __nv_bfloat16 v[kStages][Cfg<kD>::kHalves][kBN * 64];
+  using C = Cfg<kD, kSplit>;
+  // each tile as kHalves boxes of [rows][64], one after the other, per part
+  __nv_bfloat16 q[C::kParts][C::kHalves][C::kBM * 64];  // kConsumers x 64 rows
+  __nv_bfloat16 k[C::kStages][C::kParts][C::kHalves][kBN * 64];
+  __nv_bfloat16 v[C::kStages][C::kParts][C::kHalves][kBN * 64];
   uint64_t q_full;
-  uint64_t full[kStages];
-  uint64_t empty[kStages];
+  uint64_t full[C::kStages];
+  uint64_t empty[C::kStages];
+};
+
+// The tensor maps of q, k and v: one per part
+template <int kParts>
+struct Maps {
+  CUtensorMap q[kParts], k[kParts], v[kParts];
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -164,9 +192,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 }
 
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return as_u32(__floats2bfloat162_rn(lo, hi));
+}
+
+// (a, b) as bf16 hi parts, returned, and the bf16 rounding of what they
+// leave, in `lo`: a = hi.x + lo.x + r with |r| <= 2^-16 |a|
+__device__ __forceinline__ uint32_t split_bf16x2(float a, float b, uint32_t& lo) {
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(hi);
+  lo = pack_bf16x2(a - f.x, b - f.y);  // a - f.x is exact in f32
+  return as_u32(hi);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -182,18 +222,17 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-template <int kD, typename OutT>
-__global__ void __launch_bounds__(Cfg<kD>::kThreads, 1)
-encoder_attention_kernel(const __grid_constant__ CUtensorMap q_map,
-                         const __grid_constant__ CUtensorMap k_map,
-                         const __grid_constant__ CUtensorMap v_map,
-                         OutT* __restrict__ out, int n_t, int n_h, int d_true,
-                         float scale_log2) {
-  using C = Cfg<kD>;
-  constexpr int kHalves = C::kHalves, kConsumers = C::kConsumers, kBM = C::kBM;
+template <int kD, bool kSplit>
+__global__ void __launch_bounds__(Cfg<kD, kSplit>::kThreads, 1)
+encoder_attention_kernel(const __grid_constant__ Maps<Cfg<kD, kSplit>::kParts> maps,
+                         std::conditional_t<kSplit, float, __nv_bfloat16>* __restrict__ out,
+                         int n_t, int n_h, int d_true, float scale_log2) {
+  using C = Cfg<kD, kSplit>;
+  constexpr int kParts = C::kParts, kHalves = C::kHalves, kConsumers = C::kConsumers,
+                kBM = C::kBM, kStages = C::kStages;
   extern __shared__ uint8_t smem_raw[];
-  Smem<kD>& sm = *reinterpret_cast<Smem<kD>*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
-                                               ~uintptr_t(1023));
+  Smem<kD, kSplit>& sm = *reinterpret_cast<Smem<kD, kSplit>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int m0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (n_t + kBN - 1) / kBN;
   const int wg = threadIdx.x / 128;
@@ -211,20 +250,25 @@ encoder_attention_kernel(const __grid_constant__ CUtensorMap q_map,
   if (wg == 0) {  // producer warpgroup: one thread issues every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(&sm.q_full, kBM * kD * 2);
+      mbar_expect_tx(&sm.q_full, kParts * kBM * kD * 2);
       for (int c = 0; c < kConsumers; ++c)
 #pragma unroll
-        for (int hf = 0; hf < kHalves; ++hf)
-          tma_load(sm.q[hf] + c * 64 * 64, &q_map, &sm.q_full, 64 * hf, h, m0 + 64 * c, b);
+        for (int p = 0; p < kParts; ++p)
+#pragma unroll
+          for (int hf = 0; hf < kHalves; ++hf)
+            tma_load(sm.q[p][hf] + c * 64 * 64, &maps.q[p], &sm.q_full, 64 * hf, h, m0 + 64 * c,
+                     b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages;
         if (j >= kStages) mbar_wait(&sm.empty[s], ((j / kStages) - 1) & 1);
-        mbar_expect_tx(&sm.full[s], 2 * C::kTileBytes);
+        mbar_expect_tx(&sm.full[s], 2 * kParts * C::kTileBytes);
 #pragma unroll
-        for (int hf = 0; hf < kHalves; ++hf) {
-          tma_load(sm.k[s][hf], &k_map, &sm.full[s], 64 * hf, h, j * kBN, b);
-          tma_load(sm.v[s][hf], &v_map, &sm.full[s], 64 * hf, h, j * kBN, b);
-        }
+        for (int p = 0; p < kParts; ++p)
+#pragma unroll
+          for (int hf = 0; hf < kHalves; ++hf) {
+            tma_load(sm.k[s][p][hf], &maps.k[p], &sm.full[s], 64 * hf, h, j * kBN, b);
+            tma_load(sm.v[s][p][hf], &maps.v[p], &sm.full[s], 64 * hf, h, j * kBN, b);
+          }
       }
     }
   } else {  // consumer warpgroups: 64 query rows each
@@ -249,12 +293,20 @@ encoder_attention_kernel(const __grid_constant__ CUtensorMap q_map,
       mbar_wait(&sm.full[s], (j / kStages) & 1);
 
       // S = Q K^T: 64 x 128 per warpgroup, 16 head-dim channels a step
+      // (split: Qh Kh^T + Qh Kl^T + Ql Kh^T)
       float sc[kBN / 2];
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < kD / 16; ++ks)
-        wgmma_m64n128k16_ss(sc, smem_desc(sm.q[ks / 4] + q_off + (ks % 4) * 16, 16, 1024),
-                            smem_desc(sm.k[s][ks / 4] + (ks % 4) * 16, 16, 1024), ks);
+      for (int ks = 0; ks < kD / 16; ++ks) {
+        const uint64_t qh = smem_desc(sm.q[0][ks / 4] + q_off + (ks % 4) * 16, 16, 1024);
+        const uint64_t kh = smem_desc(sm.k[s][0][ks / 4] + (ks % 4) * 16, 16, 1024);
+        wgmma_m64n128k16_ss(sc, qh, kh, ks);
+        if constexpr (kSplit) {
+          wgmma_m64n128k16_ss(sc, qh, smem_desc(sm.k[s][1][ks / 4] + (ks % 4) * 16, 16, 1024), 1);
+          wgmma_m64n128k16_ss(
+              sc, smem_desc(sm.q[1][ks / 4] + q_off + (ks % 4) * 16, 16, 1024), kh, 1);
+        }
+      }
       wgmma_commit();
       wgmma_wait_all();
       fence_operands(sc);
@@ -293,20 +345,29 @@ encoder_attention_kernel(const __grid_constant__ CUtensorMap q_map,
         for (int i = 0; i < 32; ++i) o[hf][i] *= alpha[(i >> 1) & 1];
 
       // O += P V: the S accumulator layout is the register A layout of P
-      uint32_t pa[kBN / 16][4];
+      // (split: Ph Vh + Ph Vl + Pl Vh)
+      uint32_t pa[kBN / 16][4], pl[kSplit ? kBN / 16 : 1][4];
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
-        pa[kk][0] = pack_bf16x2(sc[8 * kk + 0], sc[8 * kk + 1]);
-        pa[kk][1] = pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[kk][2] = pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[kk][3] = pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
-      }
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (kSplit)
+            pa[kk][e] = split_bf16x2(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1], pl[kk][e]);
+          else
+            pa[kk][e] = pack_bf16x2(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+        }
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)  // 16 keys = 16 rows of 128 bytes a step
 #pragma unroll
-        for (int hf = 0; hf < kHalves; ++hf)
-          wgmma_m64n64k16_rs(o[hf], pa[kk], smem_desc(sm.v[s][hf] + kk * 16 * 64, 1024, 1024));
+        for (int hf = 0; hf < kHalves; ++hf) {
+          const uint64_t vh = smem_desc(sm.v[s][0][hf] + kk * 16 * 64, 1024, 1024);
+          wgmma_m64n64k16_rs(o[hf], pa[kk], vh);
+          if constexpr (kSplit) {
+            wgmma_m64n64k16_rs(o[hf], pa[kk], smem_desc(sm.v[s][1][hf] + kk * 16 * 64, 1024, 1024));
+            wgmma_m64n64k16_rs(o[hf], pl[kk], vh);
+          }
+        }
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -325,7 +386,7 @@ encoder_attention_kernel(const __grid_constant__ CUtensorMap q_map,
       const int t = m0 + (wg - 1) * 64 + warp * 16 + g + 8 * r;
       if (t >= n_t) continue;
       const float inv = 1.f / l_run[r];
-      OutT* dst = out + ((int64_t)b * n_t + t) * row_stride + (int64_t)h * d_true + 2 * tig;
+      auto* dst = out + ((int64_t)b * n_t + t) * row_stride + (int64_t)h * d_true + 2 * tig;
 #pragma unroll
       for (int hf = 0; hf < kHalves; ++hf)
 #pragma unroll
@@ -334,6 +395,25 @@ encoder_attention_kernel(const __grid_constant__ CUtensorMap q_map,
             store2(dst + 64 * hf + n8 * 8, o[hf][4 * n8 + 2 * r] * inv,
                    o[hf][4 * n8 + 2 * r + 1] * inv);
     }
+  }
+}
+
+// The split of f32 q, k and v (blockIdx.y picks one) into bf16 parts:
+// `parts` holds [q hi, q lo, k hi, k lo, v hi, v lo], n4 groups of four
+// elements each. Bound by bytes: 4 read and 4 written per element.
+__global__ void __launch_bounds__(256)
+split_bf16_kernel(const float4* __restrict__ q, const float4* __restrict__ k,
+                  const float4* __restrict__ v, uint2* __restrict__ parts, int64_t n4) {
+  const float4* src = blockIdx.y == 0 ? q : blockIdx.y == 1 ? k : v;
+  uint2* hi = parts + (int64_t)blockIdx.y * 2 * n4;
+  uint2* lo = hi + n4;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const float4 x = src[i];
+    uint2 l;
+    const uint2 h = make_uint2(split_bf16x2(x.x, x.y, l.x), split_bf16x2(x.z, x.w, l.y));
+    hi[i] = h;
+    lo[i] = l;
   }
 }
 
@@ -375,45 +455,64 @@ bool make_map(CUtensorMap* map, const void* base, int B, int n_t, int n_h, int D
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int kD, typename OutT>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int n_t, int n_h,
-           int D, cudaStream_t stream) {
-  using C = Cfg<kD>;
+template <int kD, bool kSplit>
+int launch(const void* const* parts, void* out, int B, int n_t, int n_h, int D,
+           cudaStream_t stream) {
+  using C = Cfg<kD, kSplit>;
   if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
-  CUtensorMap maps[3];
-  if (!make_map(&maps[0], q, B, n_t, n_h, D, 64) || !make_map(&maps[1], k, B, n_t, n_h, D, kBN) ||
-      !make_map(&maps[2], v, B, n_t, n_h, D, kBN))
-    return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem<kD>) + 1024;  // + the 1024-byte alignment
+  Maps<C::kParts> maps;
+  for (int p = 0; p < C::kParts; ++p)
+    if (!make_map(&maps.q[p], parts[p], B, n_t, n_h, D, 64) ||
+        !make_map(&maps.k[p], parts[C::kParts + p], B, n_t, n_h, D, kBN) ||
+        !make_map(&maps.v[p], parts[2 * C::kParts + p], B, n_t, n_h, D, kBN))
+      return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(Smem<kD, kSplit>) + 1024;  // + the 1024-byte alignment
   const cudaError_t err = cudaFuncSetAttribute(
-      encoder_attention_kernel<kD, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      encoder_attention_kernel<kD, kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   const dim3 grid((n_t + C::kBM - 1) / C::kBM, n_h, B);
-  encoder_attention_kernel<kD, OutT><<<grid, C::kThreads, smem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<OutT*>(out), n_t, n_h, D, scale_log2);
+  encoder_attention_kernel<kD, kSplit><<<grid, C::kThreads, smem, stream>>>(
+      maps, static_cast<std::conditional_t<kSplit, float, __nv_bfloat16>*>(out), n_t, n_h, D,
+      scale_log2);
   return (int)cudaGetLastError();
 }
 
-template <typename OutT>
-int launch_d(const void* q, const void* k, const void* v, void* out, int B, int n_t, int n_h,
-             int D, cudaStream_t stream) {
-  return D <= 64 ? launch<64, OutT>(q, k, v, out, B, n_t, n_h, D, stream)
-                 : launch<128, OutT>(q, k, v, out, B, n_t, n_h, D, stream);
+template <bool kSplit>
+int launch_d(const void* const* parts, void* out, int B, int n_t, int n_h, int D,
+             cudaStream_t stream) {
+  return D <= 64 ? launch<64, kSplit>(parts, out, B, n_t, n_h, D, stream)
+                 : launch<128, kSplit>(parts, out, B, n_t, n_h, D, stream);
 }
 
 }  // namespace
 
-// q, k and v are [B, T, H, D] bf16, 16-byte aligned, D a multiple of 8 up to
-// 128; out is [B, T, H, D] bf16 (out_dtype 0) or f32 (out_dtype 1). Returns a
-// cudaError_t code (0 on success). Launches on `stream`, does not
-// synchronise, allocates nothing.
+// q, k and v are [B, T, H, D], 16-byte aligned, D a multiple of 8 up to 128,
+// and out the same: bf16 (dtype 0) or f32 (dtype 1). At f32, `parts` is a
+// bf16 scratch buffer of 6 x B*T*H*D elements, 16-byte aligned, that the
+// split fills first (unused at bf16). Returns a cudaError_t code (0 on
+// success). Launches on `stream`, does not synchronise, allocates nothing.
 extern "C" int wnt_encoder_attention(const void* q, const void* k, const void* v, void* out,
-                                     int B, int T, int H, int D, int out_dtype, void* stream) {
+                                     int B, int T, int H, int D, int dtype, void* parts,
+                                     void* stream) {
   if (B < 1 || T < 1 || H < 1 || D < 8 || D > 128 || D % 8 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
-  if (out_dtype == 0)
-    return launch_d<__nv_bfloat16>(q, k, v, out, B, T, H, D, (cudaStream_t)stream);
-  if (out_dtype == 1) return launch_d<float>(q, k, v, out, B, T, H, D, (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    const void* bf16[3] = {q, k, v};
+    return launch_d<false>(bf16, out, B, T, H, D, st);
+  }
+  if (dtype != 1 || parts == nullptr) return (int)cudaErrorInvalidValue;
+  const int64_t n = (int64_t)B * T * H * D, n4 = n / 4;  // D % 8 == 0
+  const dim3 grid((unsigned)std::min<int64_t>((n4 + 255) / 256, 1056), 3);
+  split_bf16_kernel<<<grid, 256, 0, st>>>(static_cast<const float4*>(q),
+                                          static_cast<const float4*>(k),
+                                          static_cast<const float4*>(v),
+                                          static_cast<uint2*>(parts), n4);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(parts);
+  const void* split[6];
+  for (int i = 0; i < 6; ++i) split[i] = base + i * n;
+  return launch_d<true>(split, out, B, T, H, D, st);
 }

@@ -14,12 +14,12 @@ tensor-core FLOPs (576 MFLOP per (batch, head) at T = 1500). One CTA per
 192-query tile: a producer warp streams 128-key K and V tiles by TMA into
 a two-stage ring, and three consumer warpgroups run both products on
 wgmma with an online f32 softmax, so the ``[B, H, T, T]`` scores (4.6 GB
-in f32 at B = 32) that the plain version materializes never exist. Its operands
-are bf16: an f32 caller's q, k and v are rounded to bf16 here (round to
-nearest, as the TPU's default matmul precision does), and its output is
-written in f32 from the kernel's f32 accumulators.
-``_xla_attention`` is its plain version: the CPU path and the kernel's
-oracle.
+in f32 at B = 32) that the plain version materializes never exist. bf16
+operands run as they are. f32 operands (the f32 widths' encoder) are
+computed to f32 accuracy: the kernel splits each into two bf16 parts and
+runs three products per product on the tensor cores (within about 1e-5
+of the f32 computation), and writes f32. ``_xla_attention`` is its plain
+version: the CPU path and the kernel's oracle.
 """
 
 from __future__ import annotations
@@ -54,17 +54,19 @@ def _xla_attention(q, k, v, mask=None):
 @functools.lru_cache(maxsize=1)
 def _kernel():
     fn = _build.load("encoder_attention").wnt_encoder_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
 
-_OUT_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
 def _encoder_attention_cuda(q, k, v):
     """Launch kernel B on ``[B, T, H, D]`` bf16 or f32 CUDA tensors, D a
-    multiple of 8 up to 128; the output has the inputs' dtype."""
+    multiple of 8 up to 128; the output has the inputs' dtype. At f32 the
+    kernel's bf16 parts of q, k and v go to a scratch buffer allocated
+    here."""
     b, t, h, d = q.shape
     if not (q.shape == k.shape == v.shape):
         raise ValueError(f"encoder attention needs equal shapes: {q.shape}, {k.shape}, {v.shape}")
@@ -75,17 +77,20 @@ def _encoder_attention_cuda(q, k, v):
         )
     if d % 8:
         raise ValueError(f"kernel B takes a head dim that is a multiple of 8, got {d}")
-    if q.dtype not in _OUT_DTYPES or not (q.dtype == k.dtype == v.dtype):
+    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"encoder attention takes bf16 or f32, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.device.type != "cuda" or not (q.device == k.device == v.device):
         raise ValueError(f"kernel B takes q, k and v on one CUDA device, got {q.device}, {k.device}, {v.device}")
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    q, k, v = (x.to(torch.bfloat16).contiguous() for x in (q, k, v))
+    q, k, v = (x.contiguous() for x in (q, k, v))
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("kernel B's tensor maps need q, k and v 16-byte aligned")
+    out = torch.empty_like(q)
+    parts = None
+    if q.dtype == torch.float32:  # hi and lo bf16 parts of q, k and v
+        parts = torch.empty((6, b, t, h, d), dtype=torch.bfloat16, device=q.device)
     rc = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, t, h, d, _OUT_DTYPES[out.dtype],
+        b, t, h, d, _DTYPES[q.dtype], None if parts is None else parts.data_ptr(),
         _build.stream(q.device),
     )
     _build.check(rc, "encoder_attention")
