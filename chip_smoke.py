@@ -95,11 +95,11 @@ Phases, one line each:
      WhisperModel("medium.en", compute_type="int8").transcribe(audio,
      None, suppress_tokens=[-1], vad_filter=True) at its defaults (beam
      5, the temperature ladder, conditioning on the previous text,
-     timestamps), one warm request of one window and one timed request
-     of 50 s; then the openai facade on the same audio with the serving
-     handler's arguments; launches of C, B, A and E checked against the
-     windows and decode steps; then the sequential request's stage
-     times;
+     timestamps), one warm request of one window (temperatures 0 and 0.2
+     only) and one timed request of 50 s; then the openai facade on the
+     same audio with the serving handler's arguments; launches of C, B, A
+     and E checked against the windows and decode steps; then the
+     sequential request's stage times;
   6d. the main path at the default width: WhisperModel("medium.en",
      compute_type="default") (f32, float cross-KV) and the batched
      pipeline at beam 5 on one batch of windows (10 minutes of audio),
@@ -168,13 +168,37 @@ Phases, one line each:
      whisper_nemo_tpu_torch.cli.parallel ... --subprocess-diarization` on
      60 s as a new process; then B (f32 and the bf16 aligner), C, D and E
      against their plain versions at the shapes both runs launched;
+  5i. separation and pyannote parity: htdemucs at small dims (the
+     forward, and apply_segments over 8 windows 3 a batch), resample_poly
+     44.1 kHz -> 16 kHz, PyanNet's speech probabilities and ECAPA's
+     embeddings on the GPU against the CPU, f32; then 5f's flow with a
+     small seeded htdemucs.npz and its sidecar, stemming on: the card's
+     vocals.wav within 1.5 PCM steps of the CPU's separation, the rest
+     held as in 5f but the aligned words' times (printed);
+  6k. BASELINE config 3 through the CLI flow at full width: run_sequential
+     with --whisper-model large-v3 --domain meeting --language en and the
+     CLI's defaults (stemming on: a seeded full-size htdemucs.npz; --device
+     auto, "default", beam 5, batch 8; TitaNet-large and the meeting
+     preset's MSDD from seeded checkpoints) on 6f's 5 minutes: the wall,
+     each stage's seconds (separation apart), peak memory and launches by
+     shape; then bench.py's device handoff (apply_segments of the stereo
+     mix at 44.1 kHz, vocals only, left on the card; mono; resample_poly
+     to 16 kHz) timed alone, and the resample beside its bound;
+  6l. kernels B, C, D and E against their plain versions at every shape
+     6k launched them at (B f32 at H=20, C at 128 mels, E f32 at H=20);
+  6m. the diarizer with PyanNet (a seeded full-size
+     pyannote_segmentation.npz) and ECAPA-TDNN under force_large_models
+     on 15 minutes of four voices: wall, stages, peak memory, the speech
+     share; the VAD's probabilities over the 15 minutes and, on the first
+     2, the embeddings and turns held against the CPU;
   7. the card's name and power limit, the kernels' JSON line, and last
      {"ok": true, "device": {...}}.
 Any phase that fails raises, and the script exits non-zero without the
 last line. Weights are random from --seed unless $WNT_MODEL_DIR holds
 medium.en.npz, ctc_aligner.npz and (for 6e) the diarization checkpoints;
-phases 5f, 5g, 5h, 6f, 6h and 6j make their own model directories, with
-a vocabulary whose tokens are words (``word_vocab``).
+phases 5f, 5g, 5h, 6f, 6h, 6j, 6k and 6m make their own model
+directories, 5f-6k with a vocabulary whose tokens are words
+(``word_vocab``).
 """
 
 from __future__ import annotations
@@ -1808,7 +1832,8 @@ def phase_default_main(seed: int) -> dict:
 def phase_sequential_main(main: dict, seed: int) -> dict:
     """The CLI's --batch-size 0 call on medium.en int8 (the main path's
     model): beam 5, the default ladder, conditioning, timestamps, VAD. One
-    warm request of one window, one timed request of 50 s; then the
+    warm request of one window on the ladder's first two temperatures (the
+    beam decode and the sampled one), one timed request of 50 s; then the
     serving handler's call through the openai facade (load_model, int8,
     temperature 0, no conditioning, greedy) on the same audio. Each run's
     kernel launches are checked against its windows and decode steps: C
@@ -1864,14 +1889,16 @@ def phase_sequential_main(main: dict, seed: int) -> dict:
         return {"wall": wall, "windows": windows, "steps": steps, "beam_steps": beam_steps,
                 "launches": (c, b, a, e), "audio_s": len(audio) / SR}
 
-    def cli(audio):
-        segments, info = model.transcribe(audio, None, suppress_tokens=[-1], vad_filter=True)
+    def cli(audio, **kw):
+        segments, info = model.transcribe(audio, None, suppress_tokens=[-1], vad_filter=True,
+                                          **kw)
         check(info.language == "en", f"6c: language {info.language}")
         return [{"start": s.start, "end": s.end, "no_speech_prob": s.no_speech_prob}
                 for s in segments]
 
     audio = speechlike(50.0, seed + 8)
-    run("warm request, 25 s", cli, eng, speechlike(25.0, seed + 9), True)
+    run("warm request, 25 s, temperatures 0 and 0.2",
+        lambda a: cli(a, temperature=(0.0, 0.2)), eng, speechlike(25.0, seed + 9), True)
     timed = run("timed request, 50 s (the CLI's --batch-size 0 call)", cli, eng, audio, True)
     t0 = time.time()
     handler_model = load_model("medium.en", "cuda", compute_type="int8", seed=seed)
@@ -2392,28 +2419,50 @@ def flow_trees(directory: str, seed: int) -> None:
     write_word_vocab(directory)
 
 
-def phase_flow_parity(seed: int, devices=("cuda", "cpu")) -> None:
+def install_small_htdemucs(directory: str, seed: int) -> None:
+    """A seeded htdemucs at DEMUCS_SMALL saved by the port into
+    ``directory`` with the sidecar the JAX package's converter writes."""
+    import torch
+
+    from whisper_nemo_tpu_torch.engine.checkpoint import save_params
+    from whisper_nemo_tpu_torch.models import htdemucs
+
+    dims = htdemucs.HTDemucsDims(**DEMUCS_SMALL)
+    save_params(os.path.join(directory, "htdemucs.npz"), htdemucs.init_htdemucs_params(
+        dims, "cpu", torch.Generator().manual_seed(seed + 55)))
+    with open(os.path.join(directory, "htdemucs.cfg.json"), "w") as f:
+        json.dump({"sources": list(dims.sources), "segment": dims.segment,
+                   "samplerate": dims.samplerate}, f)
+
+
+def phase_flow_parity(seed: int, devices=("cuda", "cpu"), stem: bool = False) -> None:
     """5f: the CLI flow on ``devices[0]`` against its tail on
     ``devices[1]``, at small dims: tiny.en (random, seeded on the device),
     the aligner, TitaNet small and the punctuation model at their small
     dims, the telephonic MSDD, seeded trees saved into a temporary
-    $WNT_MODEL_DIR with the word vocabulary. The audio is the first of
-    DIAR_AUDIOS seeded 60 s of three voices whose Laplacian has an
-    eigengap above DIAR_GAP on ``devices[1]`` (where the gap is smaller,
-    two eigensolvers' labels may differ, phase 5e). ``run_sequential`` on
-    a WAV of it at ``--device auto`` (``devices[0]``); then, from the same
-    AsrResult on ``devices[1]``: ``run_alignment``, whose words must have
-    the same texts and segments (their times are printed: the card's
-    aligner runs bf16, the CPU's f32, and random weights give the Viterbi
-    near-ties, so times may move, as phase 5b holds only on shared
-    emissions); ``run_diarization``, whose turns must equal the card's;
-    and ``_merge_and_write`` of the card's words and these turns, whose
-    ``.txt`` and ``.srt`` bytes must equal the card's. The bytes of the
-    tail on its own words are printed beside them. ASR is held GPU against
-    CPU by phases 5, 5c and 5d."""
+    $WNT_MODEL_DIR with the word vocabulary; with ``stem`` (5i's flow)
+    also htdemucs at DEMUCS_SMALL with its sidecar, and the flow stems.
+    The audio is the first of DIAR_AUDIOS seeded 60 s of three voices
+    whose Laplacian (with ``stem``: that of its vocals, as the separator
+    gives them on ``devices[1]``) has an eigengap above DIAR_GAP on
+    ``devices[1]`` (where the gap is smaller, two eigensolvers' labels
+    may differ, phase 5e). ``run_sequential`` on a WAV of it at
+    ``--device auto`` (``devices[0]``), ``--no-stem`` unless ``stem``,
+    where its vocals.wav must be the CPU's within 1.5 steps of 16-bit PCM;
+    then, from the same AsrResult on ``devices[1]``: ``run_alignment``,
+    whose words must have the same texts and segments and, without
+    ``stem``, times within FLOW_MOVE_TOL (the card's aligner runs bf16,
+    the CPU's f32, and random weights give the Viterbi near-ties, so times
+    may move, as phase 5b holds only on shared emissions; on the random
+    separator's vocals they moved by 0.12 s on an H100, so with ``stem``
+    they are printed and not held); ``run_diarization``, whose
+    turns must equal the card's; and ``_merge_and_write`` of the card's
+    words and these turns, whose ``.txt`` and ``.srt`` bytes must equal
+    the card's. The bytes of the tail on its own words are printed beside
+    them. ASR is held GPU against CPU by phases 5, 5c and 5d."""
     import torch
 
-    from whisper_nemo_tpu_torch.audio import write_wav
+    from whisper_nemo_tpu_torch.audio import read_wav, write_wav
     from whisper_nemo_tpu_torch.cli import flow
     from whisper_nemo_tpu_torch.config import create_config
     from whisper_nemo_tpu_torch.diarize import NeuralDiarizer, pipeline
@@ -2431,18 +2480,26 @@ def phase_flow_parity(seed: int, devices=("cuda", "cpu")) -> None:
         stack.enter_context(patched(pipeline, "_TITANET_LARGE", pipeline._TITANET_SMALL))
         stack.enter_context(patched(punctuation, "XlmRobertaDims", small_xlmr))
         flow_trees(models, seed)
+        if stem:
+            install_small_htdemucs(models, seed)
+        tag = "5i flow" if stem else "5f"
 
         probe = NeuralDiarizer(create_config(os.path.join(tmp, "probe"), "telephonic"),
                                device=cpu)
         gaps = []
         for i in range(DIAR_AUDIOS):
-            audio = voices(60.0, seed + 60 + i, 3)
+            audio = cpu_vocals = voices(60.0, seed + 60 + i, 3)
+            if stem:
+                path = os.path.join(tmp, f"probe_{i}.wav")
+                write_wav(path, audio)
+                cpu_vocals = read_wav(flow.maybe_separate_vocals(
+                    path, True, cpu, os.path.join(tmp, "probe_sep")))[0]
             stats = {}
-            probe.diarize_waveform(audio, stats=stats)
+            probe.diarize_waveform(cpu_vocals, stats=stats)
             gaps.append(stats.get("eigengap", 0.0))
             if gaps[-1] > DIAR_GAP:
                 break
-        check(gaps[-1] > DIAR_GAP, f"5f: no audio of {DIAR_AUDIOS} has an eigengap above"
+        check(gaps[-1] > DIAR_GAP, f"{tag}: no audio of {DIAR_AUDIOS} has an eigengap above"
               f" {DIAR_GAP} (gaps {gaps}; choose another --seed)")
         del probe
 
@@ -2450,9 +2507,17 @@ def phase_flow_parity(seed: int, devices=("cuda", "cpu")) -> None:
         for path in runs.values():
             os.makedirs(path)
             write_wav(os.path.join(path, "call.wav"), audio)
-        asr, words, turns, card_stats = [], [], [], {}
+        asr, words, turns, card_stats, card_vocals = [], [], [], {}, []
         waveform_call = NeuralDiarizer.diarize_waveform
+        separate = flow.separate_vocals
+
+        def separate_and_keep(*args):
+            out = separate(*args)
+            card_vocals.append(read_wav(out)[0])
+            return out
+
         with contextlib.ExitStack() as card:
+            card.enter_context(patched(flow, "separate_vocals", separate_and_keep))
             recording(card, flow, "run_asr", asr, sync)
             recording(card, flow, "run_alignment", words, sync)
             recording(card, flow, "run_diarization", turns, sync)
@@ -2462,12 +2527,20 @@ def phase_flow_parity(seed: int, devices=("cuda", "cpu")) -> None:
             t0 = time.time()
             flow.run_sequential(flow.build_arg_parser().parse_args(
                 ["-a", os.path.join(runs["card"], "call.wav"), "--whisper-model", "tiny.en",
-                 "--no-stem", "--device", "auto" if torch.device(gpu).type == "cuda" else gpu]))
+                 "--device", "auto" if torch.device(gpu).type == "cuda" else gpu]
+                + ([] if stem else ["--no-stem"])))
             card_s = time.time() - t0
-        check(card_stats["eigengap"] > DIAR_GAP, f"5f: the eigengap on {gpu} is"
+        if stem:
+            vocals_err = float(np.abs(card_vocals[0] - cpu_vocals).max())
+            check(len(card_vocals) == 1 and card_vocals[0].shape == cpu_vocals.shape
+                  and vocals_err <= 1.5 / 32767, f"{tag}: the card's vocals.wav is"
+                  f" {vocals_err * 32767:.1f} PCM steps from the CPU's")
+        else:
+            check(not card_vocals, f"{tag}: the flow separated with --no-stem")
+        check(card_stats["eigengap"] > DIAR_GAP, f"{tag}: the eigengap on {gpu} is"
               f" {card_stats['eigengap']:.2e}")
         result, card_words, card_turns = asr[0][1], words[0][1], turns[0][1]
-        check(len(card_words) > 20, f"5f: the card's flow aligned {len(card_words)} words")
+        check(len(card_words) > 20, f"{tag}: the card's flow aligned {len(card_words)} words")
 
         with contextlib.chdir(runs["tail"]):
             cpu_words = flow.run_alignment(result.audio, result.full_transcript, result.language,
@@ -2476,28 +2549,33 @@ def phase_flow_parity(seed: int, devices=("cuda", "cpu")) -> None:
                                              device=cpu)
         check([(w["text"], w["segment"]) for w in cpu_words]
               == [(w["text"], w["segment"]) for w in card_words],
-              "5f: the aligned words' texts or segments differ between the devices")
+              f"{tag}: the aligned words' texts or segments differ between the devices")
         moved = max(max(abs(a["start"] - b["start"]), abs(a["end"] - b["end"]))
                     for a, b in zip(cpu_words, card_words))
-        check(moved <= FLOW_MOVE_TOL, f"5f: the card's aligner moved a word by {moved:.3f} s"
-              f" from the CPU's (limit {FLOW_MOVE_TOL} s)")
-        check(cpu_turns == card_turns, "5f: the speaker turns differ between the devices")
+        check(stem or moved <= FLOW_MOVE_TOL, f"{tag}: the card's aligner moved a word by"
+              f" {moved:.3f} s from the CPU's (limit {FLOW_MOVE_TOL} s)")
+        check(cpu_turns == card_turns, f"{tag}: the speaker turns differ between the devices")
         tails = {}
         for name, tail_words in (("tail", card_words), ("tail_own", cpu_words)):
             flow._merge_and_write([dict(w) for w in tail_words], cpu_turns, result.language,
                                   os.path.join(runs[name], "call.wav"), cpu)
-            tails[name] = check_outputs(os.path.join(runs[name], "call"), 60.0, f"5f {name}")
-        got = check_outputs(os.path.join(runs["card"], "call"), 60.0, "5f card")
+            tails[name] = check_outputs(os.path.join(runs[name], "call"), 60.0, f"{tag} {name}")
+        got = check_outputs(os.path.join(runs["card"], "call"), 60.0, f"{tag} card")
         check(got["raw"] == tails["tail"]["raw"],
-              "5f: the card's .txt or .srt bytes differ from the CPU tail's")
+              f"{tag}: the card's .txt or .srt bytes differ from the CPU tail's")
         check(not os.path.exists(os.path.join(runs["card"], "temp_outputs")),
-              "5f: temp_outputs was left behind")
-    print(f"[5f flow parity] run_sequential (tiny.en random, the aligner, TitaNet small, MSDD,"
-          f" the punctuation model at small dims) --device auto on {gpu} in {card_s:.1f} s,"
+              f"{tag}: temp_outputs was left behind")
+    separation = (f" (htdemucs at small dims: stemming on, vocals.wav within"
+                  f" {vocals_err * 32767:.1f} PCM steps of the CPU's separation)" if stem else
+                  " --no-stem")
+    print(f"[{tag} parity] run_sequential (tiny.en random, the aligner, TitaNet small, MSDD,"
+          f" the punctuation model at small dims){separation} --device auto on {gpu} in"
+          f" {card_s:.1f} s,"
           f" against the flow's tail on {cpu} from the same AsrResult, audio {i} of 60 s of 3"
           f" voices (eigengaps {', '.join(f'{g:.4f}' for g in gaps)}; on {gpu}"
           f" {card_stats['eigengap']:.4f}) | {len(card_words)} words, texts and segments equal,"
-          f" times moved by up to {moved:.3f} s (limit {FLOW_MOVE_TOL} s; the aligner"
+          f" times moved by up to {moved:.3f} s"
+          f" ({'not held' if stem else f'limit {FLOW_MOVE_TOL} s'}; the aligner"
           f" {'bf16' if sync else 'f32'} against f32) | turns equal"
           f" ({len(card_turns)}, {len(got['speakers'])} speakers) | .txt and .srt bytes equal"
           f" ({got['cues']} cues) | the tail on its own words: bytes"
@@ -2638,7 +2716,8 @@ def run_flow(argv: list, audio_path: str, seconds: float, work: str, what: str,
     """``run_sequential`` (``run_parallel`` with ``parallel``, its parser's
     defaults) on ``argv`` in process from ``work``: every kernel's count
     set to 0 just before and read just after, each launch's shape recorded
-    (``recording_launches``), each stage timed after a synchronise of the
+    (``recording_launches``), each stage (the separation too, where the
+    flow stems) timed after a synchronise of the
     stream it ran on (a branch's own in the parallel flow, so that timing
     one branch does not wait for the other). Checks what every width
     shares: the outputs
@@ -2661,9 +2740,10 @@ def run_flow(argv: list, audio_path: str, seconds: float, work: str, what: str,
     def sync():
         torch.cuda.current_stream().synchronize()
 
-    calls = {name: [] for name in ("decode", "asr", "align", "diarize", "punct", "merge",
-                                   "labels", "model", "aligner")}
+    calls = {name: [] for name in ("separate", "decode", "asr", "align", "diarize", "punct",
+                                   "merge", "labels", "model", "aligner")}
     with contextlib.ExitStack() as timing:
+        recording(timing, flow, "maybe_separate_vocals", calls["separate"], sync)
         recording(timing, fw, "decode_audio", calls["decode"], sync)
         recording(timing, fw, "WhisperModel", calls["model"], sync)
         recording(timing, flow, "load_alignment_model", calls["aligner"], sync)
@@ -2716,11 +2796,14 @@ def run_flow(argv: list, audio_path: str, seconds: float, work: str, what: str,
     check(len(wsm) == len(labeled) == len(words) > 0 and len(calls["labels"]) == 1,
           f"{what}: punctuation labelled {len(labeled)} of {len(words)} words")
     check(not os.path.exists(os.path.join(work, "temp_outputs")), f"{what}: temp_outputs left")
+    check(not args.stemming or calls["separate"][0][1] != args.audio,
+          f"{what}: the flow went on without separating the vocals")
     check(out["words"] == len(words) and out["cues"] > 1,
           f"{what}: the SRT holds {out['words']} of the {len(words)} aligned words")
     secs = {k: sum(t for t, *_ in calls[k]) for k in calls}
     # the parallel flow decodes once before its branches, and run_asr once more
-    stages = {"decode": secs["decode"], "ASR": secs["asr"] - calls["decode"][-1][0],
+    stages = {"separation": secs["separate"]} if args.stemming else {}
+    stages |= {"decode": secs["decode"], "ASR": secs["asr"] - calls["decode"][-1][0],
               "of it the model's set-up": secs["model"], "alignment": secs["align"],
               "diarization": secs["diarize"], "punctuation": secs["punct"],
               "mapping and writers": secs["merge"] - secs["punct"]}
@@ -3837,6 +3920,316 @@ def phase_parallel_main(seed: int, smi: str) -> tuple:
     return runs, entries
 
 
+# -- config 3 and the pyannote stages (phases 5i, 6k, 6l and 6m) --------------
+
+# htdemucs at small dims (5f, 5i; tests/test_torch_separation.py's)
+DEMUCS_SMALL = dict(channels=4, depth=4, nfft=512, bottom_channels=32, t_layers=3, segment=0.5,
+                    samplerate=16000)
+DEMUCS_TOL = 1e-4  # htdemucs' outputs, relative to the largest: f32 sums in other orders
+RESAMPLE_TOL = 1e-5  # the polyphase resample's outputs
+PROB_TOL = 1e-5  # PyanNet's speech probabilities
+# 5i: PyanNet and ECAPA at tests/test_torch_pyannote_ecapa.py's widths (80 mel bands)
+PYANNET_SMALL = dict(lstm_layers=2, hidden=16)
+ECAPA_SMALL = dict(channels=32, agg_channels=48, res2net_scale=4, se_reduction=4, attn_hidden=16,
+                   emb_dim=20)
+# 6k: BASELINE config 3 (bench.py --model large-v3 --demucs --domain meeting) through the
+# CLI: stemming on, --device auto ("default"), beam 5, batch 8; English named, as random
+# weights detect an arbitrary language
+CONFIG3_ARGV = ["--whisper-model", "large-v3", "--domain", "meeting", "--language", "en"]
+PYANNOTE_SECONDS = 900.0  # 6m's audio: fifteen minutes of four voices
+PYANNOTE_CPU_SECONDS = 120.0  # 6m's turns, held against the CPU on its first two minutes
+
+
+def rel_err(got, want) -> float:
+    """max|got - want| over max|want|, on the CPU."""
+    got, want = got.detach().cpu().float(), want.detach().cpu().float()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def phase_separation_parity(seed: int, devices=("cuda", "cpu")) -> None:
+    """5i: the new modules of config 3 and the pyannote stages at small
+    dims, ``devices[0]`` against ``devices[1]`` on the same seeded trees
+    and inputs, f32 with TF32 off: htdemucs at DEMUCS_SMALL (the forward
+    on two mixes of 8,000 samples, and ``apply_segments`` over 47,500
+    samples in 8 windows, 3 a batch, the last zero-padded) within
+    DEMUCS_TOL; ``resample_poly`` 44.1 kHz -> 16 kHz on 10 s within
+    RESAMPLE_TOL; PyanNet's ``speech_probs`` on two 3 s waveforms within
+    PROB_TOL; ECAPA's embeddings of windows of 1, 23 and 40 valid frames
+    within DIAR_EMB_TOL of the largest. Phase 5f runs the separator inside
+    the CLI flow."""
+    import torch
+
+    from whisper_nemo_tpu_torch.engine.checkpoint import to_device
+    from whisper_nemo_tpu_torch.engine.precision import full_f32
+    from whisper_nemo_tpu_torch.models import ecapa, htdemucs, pyannet
+    from whisper_nemo_tpu_torch.ops.resample import resample_poly
+
+    g = torch.Generator().manual_seed(seed + 80)
+    ddims, edims = htdemucs.HTDemucsDims(**DEMUCS_SMALL), ecapa.EcapaDims(**ECAPA_SMALL)
+    trees = {"htdemucs": htdemucs.init_htdemucs_params(ddims, "cpu", g),
+             "pyannet": pyannet.init_pyannet_params("cpu", g, **PYANNET_SMALL),
+             "ecapa": ecapa.init_ecapa_params(edims, "cpu", g)}
+    rng = np.random.default_rng(seed + 81)
+    inputs = {"mix": 0.2 * rng.standard_normal((2, 2, 8000)),
+              "long_mix": 0.2 * rng.standard_normal((2, 47_500)),
+              "wave44": rng.standard_normal(441_000),
+              "waves": voices(6.0, seed + 82).reshape(2, -1),
+              "feats": rng.standard_normal((3, edims.n_mels, 40))}
+    lengths = [1, 23, 40]
+    outs = {}
+    for dev in devices:
+        t = to_device(trees, dev)
+        x = {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev) for k, v in inputs.items()}
+        with full_f32(), torch.inference_mode():
+            outs[dev] = {
+                "htdemucs_forward": htdemucs.htdemucs_forward(t["htdemucs"], x["mix"], ddims),
+                "apply_segments": htdemucs.apply_segments(t["htdemucs"], x["long_mix"], ddims,
+                                                          batch_size=3, device_out=True),
+                "resample_poly": resample_poly(x["wave44"], 44100, 16000),
+                "speech_probs": pyannet.speech_probs(t["pyannet"], x["waves"]),
+                "ecapa": ecapa.embed(t["ecapa"], x["feats"], torch.tensor(lengths, device=dev),
+                                     edims)}
+    gpu, cpu = (outs[d] for d in devices)
+    relative = ("htdemucs_forward", "apply_segments", "ecapa")
+    errs = {k: rel_err(gpu[k], cpu[k]) for k in relative}
+    errs |= {k: float((gpu[k].cpu() - cpu[k]).abs().max()) for k in ("resample_poly",
+                                                                       "speech_probs")}
+    bounds = {"htdemucs_forward": DEMUCS_TOL, "apply_segments": DEMUCS_TOL,
+              "ecapa": DIAR_EMB_TOL, "resample_poly": RESAMPLE_TOL, "speech_probs": PROB_TOL}
+    for k, err in errs.items():
+        check(gpu[k].shape == cpu[k].shape and bool(torch.isfinite(gpu[k]).all()),
+              f"5i {k}: shape {tuple(gpu[k].shape)} against {tuple(cpu[k].shape)}, or not finite")
+        check(err <= bounds[k], f"5i {k}: {err:.3e} between {devices[0]} and {devices[1]}"
+              f" (limit {bounds[k]})")
+    print(f"[5i separation and pyannote parity] {devices[0]} against {devices[1]}, f32 (TF32 off):"
+          + "; ".join(f" {k} {tuple(gpu[k].shape)} {err:.2e}"
+                      f" ({'relative' if k in relative else 'absolute'},"
+                      f" limit {bounds[k]})" for k, err in errs.items()))
+
+
+def phase_config3_main(seed: int, smi: str) -> dict:
+    """6k: BASELINE config 3 through the CLI flow at full width, in process
+    (``run_flow``): ``run_sequential`` with CONFIG3_ARGV and the CLI's
+    other defaults (stemming on, ``--device auto``: large-v3 at "default",
+    f32 with the float cross-KV, kernel A held at 0; beam 5, batch 8) on a
+    WAV of FLOW_SECONDS of four voices. $WNT_MODEL_DIR holds a seeded
+    full-size ``htdemucs.npz`` (``HTDemucsDims()``: 48 channels, depth 4,
+    nfft 4096, 5 transformer layers, 44.1 kHz) with its sidecar,
+    TitaNet-large, the meeting preset's MSDD (6 scales) and the word
+    vocabulary; Whisper, the aligner and XLM-R are seeded random inits.
+    Prints the wall, each stage's seconds (separation apart), peak device
+    memory and every kernel's launches by shape. Then bench.py's device
+    handoff on the same audio: ``apply_segments`` of the stereo mix at
+    44.1 kHz with ``source_indices=(vocals,)`` left on the card, its mono
+    mix and ``resample_poly`` to 16 kHz, timed alone after a synchronise;
+    and the resample alone by CUDA events beside its bound. Returns the
+    flow's run (``phase_flow_kernels`` holds its kernels' shapes, 6l)."""
+    import torch
+
+    from whisper_nemo_tpu_torch.audio import decode_audio, write_wav
+    from whisper_nemo_tpu_torch.diarize import pipeline
+    from whisper_nemo_tpu_torch.engine.checkpoint import save_params
+    from whisper_nemo_tpu_torch.engine.precision import full_f32
+    from whisper_nemo_tpu_torch.models import htdemucs, msdd, titanet
+    from whisper_nemo_tpu_torch.ops.resample import _polyphase_matrix, resample_poly
+
+    with contextlib.ExitStack() as stack:
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        models = os.path.join(tmp, "models")
+        work = os.path.join(tmp, "work")
+        os.makedirs(models)
+        os.makedirs(work)
+        stack.enter_context(model_dir(models))
+        ddims = htdemucs.HTDemucsDims()
+        save_params(os.path.join(models, "htdemucs.npz"), htdemucs.init_htdemucs_params(
+            ddims, "cpu", torch.Generator().manual_seed(seed + 90)))
+        with open(os.path.join(models, "htdemucs.cfg.json"), "w") as f:
+            json.dump({"sources": list(ddims.sources), "segment": ddims.segment,
+                       "samplerate": ddims.samplerate}, f)
+        g = torch.Generator().manual_seed(seed + 70)
+        save_params(os.path.join(models, "titanet_large.npz"),
+                    titanet.init_titanet_params(pipeline._TITANET_LARGE, "cpu", g))
+        save_params(os.path.join(models, "diar_msdd_telephonic.npz"),
+                    msdd.init_msdd_params(msdd.MsddDims(n_scales=6), "cpu", g))
+        write_word_vocab(models, multilingual=True)
+        audio_path = os.path.join(work, "call.wav")
+        write_wav(audio_path, voices(FLOW_SECONDS, seed + 71, 4))
+
+        run = run_flow(["-a", audio_path, *CONFIG3_ARGV], audio_path, FLOW_SECONDS, work, "6k")
+        check(run["dtype"] == torch.float32 and run["kv_bits"] is None
+              and run["layers"][:2] == (32, 32), "6k: not large-v3 at \"default\"")
+        check(run["launches"]["a"] == 0, f"6k: kernel A launched {run['launches']['a']} times"
+              f" over the float cross-KV")
+        print(f"[6k config 3] {smi} | run_sequential {' '.join(CONFIG3_ARGV)} (stemming on,"
+              f" --device auto: \"default\", beam 5, batch 8) on {FLOW_SECONDS:.0f} s of four voices:"
+              f" {fmt_flow(run, FLOW_SECONDS)} | launches by shape: {fmt_shapes(run['shapes'])}")
+        torch.cuda.empty_cache()
+
+        params, dims = htdemucs.load_htdemucs(models, "cuda")
+        check(dims == ddims, f"6k: the checkpoint reads as {dims}")
+        mix44 = decode_audio(audio_path, sampling_rate=dims.samplerate)
+        stereo = torch.from_numpy(np.stack([mix44] * dims.audio_channels)).cuda()
+        seg = int(dims.segment * dims.samplerate)
+        windows = math.ceil(max(stereo.shape[-1] - seg, 0) / int(0.75 * seg)) + 1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with full_f32(), torch.inference_mode():
+            vocals = htdemucs.apply_segments(params, stereo, dims,
+                                             source_indices=(dims.sources.index("vocals"),),
+                                             device_out=True)
+            mono = vocals[0].mean(dim=0)
+            v16 = resample_poly(mono, dims.samplerate, 16000)
+            torch.cuda.synchronize()
+            handoff_s = time.time() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            resample_ms = cuda_ms(lambda i=0: resample_poly(mono, dims.samplerate, 16000), 10)
+        check(tuple(v16.shape) == (int(FLOW_SECONDS * 16000),) and bool(torch.isfinite(v16).all()),
+              f"6k: the handoff gave {tuple(v16.shape)} samples, or not finite")
+        mat, _, width = _polyphase_matrix(160, 441)
+        blocks = math.ceil(v16.shape[0] / 160)
+        flops = 2.0 * blocks * width * 160
+        bound_ms = max(4.0 * (mono.numel() + v16.numel()) / HBM_BYTES_S,
+                       flops / F32_FLOPS) * 1e3
+        print(f"[6k config 3] {smi} | bench.py's device handoff on the same {FLOW_SECONDS:.0f} s:"
+              f" apply_segments(stereo mix at {dims.samplerate} Hz, {windows} windows of"
+              f" {dims.segment} s, batch 8, source_indices=(vocals,)) + mono + resample_poly ->"
+              f" 16 kHz on the card: {handoff_s:.3f} s ({handoff_s / FLOW_SECONDS * 3600:.1f} s per"
+              f" audio hour), peak device memory {peak:.2f} GiB | resample_poly alone"
+              f" ({mono.numel()} -> {v16.numel()} samples, a [{blocks}, {width}] x [{width}, 160]"
+              f" f32 GEMM, {flops / 1e9:.2f} GFLOP): {resample_ms:.3f} ms (CUDA events), bound"
+              f" {bound_ms:.3f} ms")
+        del params, stereo, vocals, mono, v16
+    torch.cuda.empty_cache()
+    return run
+
+
+def ecapa_flops_per_frame(dims) -> float:
+    """Multiply-adds x 2 of ECAPA-TDNN a frame: the prologue, each block's
+    two 1x1 convs and Res2Net convs, the aggregation and the frame part
+    of the attention."""
+    c, s = dims.channels, dims.res2net_scale
+    block = 2 * c * c + (s - 1) * 3 * (c // s) ** 2
+    return 2.0 * (5 * dims.n_mels * c + len(dims.dilations) * block
+                  + len(dims.dilations) * c * dims.agg_channels
+                  + 2 * dims.agg_channels * dims.attn_hidden)
+
+
+def phase_pyannote_ecapa_main(seed: int, smi: str) -> None:
+    """6m: the diarizer with PyanNet and ECAPA at full dims:
+    NeuralDiarizer(create_config(tmp, "telephonic") naming ``ecapa_tdnn``,
+    force_large_models=True) with a seeded full-size
+    ``pyannote_segmentation.npz`` (SincNet 80, 4 BiLSTM layers of 128, 7
+    powerset classes) in $WNT_MODEL_DIR and no MarbleNet: PyanNet is the
+    VAD; ECAPA-TDNN (``EcapaDims()``) and the telephonic MSDD are seeded
+    inits. A warm request of 60 s, then PYANNOTE_SECONDS of four voices
+    with num_speakers=4: wall, stage times, peak device memory, the speech
+    share (random PyanNet weights may mark all or none of it as speech)
+    and ECAPA's rate. Held against the CPU (the same trees, moved): the
+    VAD's probabilities over the whole audio within PROB_TOL, and on its
+    first PYANNOTE_CPU_SECONDS the mapped embeddings within DIAR_EMB_TOL of
+    the largest and the turns equal where the CPU's eigengap exceeds
+    DIAR_GAP."""
+    import copy
+
+    import torch
+
+    from whisper_nemo_tpu_torch.config import create_config
+    from whisper_nemo_tpu_torch.diarize import NeuralDiarizer
+    from whisper_nemo_tpu_torch.engine.checkpoint import save_params
+    from whisper_nemo_tpu_torch.engine.precision import full_f32
+    from whisper_nemo_tpu_torch.models import ecapa, pyannet
+
+    with contextlib.ExitStack() as stack:
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        models = os.path.join(tmp, "models")
+        os.makedirs(models)
+        stack.enter_context(model_dir(models))
+        save_params(os.path.join(models, "pyannote_segmentation.npz"), pyannet.init_pyannet_params(
+            "cpu", torch.Generator().manual_seed(seed + 95)))
+        cfg = create_config(os.path.join(tmp, "run"), "telephonic")
+        cfg.diarizer.speaker_embeddings.model_path = "ecapa_tdnn"
+        t0 = time.time()
+        gd = NeuralDiarizer(cfg, force_large_models=True, device="cuda", seed=seed)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        check(gd.pyannet_params is not None and gd.vad_params is None
+              and gd._bench_vad_params is None and gd.spk_dims == ecapa.EcapaDims()
+              and gd.msdd_params is not None, "6m: not PyanNet with ECAPA-TDNN and MSDD")
+        # a generator on the card draws other numbers than one on the CPU: move the trees
+        cd = copy.deepcopy(gd).to("cpu")
+        seen = {}
+        for name, d in (("gpu", gd), ("cpu", cd)):
+            for attr in ("_frame_speech_probs", "_mapped_embeddings"):
+                def keep(*a, _f=getattr(d, attr), _k=(name, attr), **kw):
+                    seen[_k] = _f(*a, **kw)
+                    return seen[_k]
+                setattr(d, attr, keep)
+        gd.diarize_waveform(voices(60.0, seed + 96, 4), num_speakers=4)
+        audio = voices(PYANNOTE_SECONDS, seed + 97, 4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        t0 = time.time()
+        turns = gd.diarize_waveform(audio, num_speakers=4, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        probs = seen[("gpu", "_frame_speech_probs")]
+        onset = cfg.diarizer.vad.parameters.onset
+        with full_f32(), torch.inference_mode():
+            cpu_probs = cd._frame_speech_probs(audio, torch.from_numpy(audio))
+        prob_err = float(np.abs(probs - cpu_probs).max())
+        check(probs.shape == cpu_probs.shape == (int(PYANNOTE_SECONDS * 100),),
+              f"6m: VAD probabilities of {probs.shape} frames on the card, {cpu_probs.shape} on"
+              f" the CPU")
+        check(prob_err <= PROB_TOL, f"6m: the VAD's probabilities {prob_err:.2e} from the CPU's"
+              f" (limit {PROB_TOL})")
+        seconds = stats.get("seconds", {})
+        embed_s = sum(v for k, v in seconds.items() if k.startswith("embed_"))
+        windows = cfg.diarizer.speaker_embeddings.parameters.window_length_in_sec
+        frames = sum(n * (int(w * SR) // 160 + 1)
+                     for n, w in zip(stats.get("windows", []), windows))
+        tflop = ecapa_flops_per_frame(gd.spk_dims) * frames / 1e12
+        rate = (f"{frames} window-frames, {tflop:.2f} TFLOP in {embed_s:.3f} s,"
+                f" {tflop / embed_s:.1f} TFLOP/s ({tflop * 1e12 / embed_s / F32_FLOPS:.0%} of the"
+                f" f32 peak)" if embed_s else "not run (no speech)")
+        print(f"[6m pyannote + ECAPA] {smi} | telephonic, PyanNet VAD (SincNet 80, 4 BiLSTM layers"
+              f" of 128, 7 classes) + ECAPA-TDNN (512 channels, 1536 aggregated) + MSDD, f32"
+              f" (TF32 off): setup {setup_s:.1f} s | {PYANNOTE_SECONDS / 60:.0f} min, num_speakers"
+              f" 4: wall {wall:.3f} s ({wall / PYANNOTE_SECONDS * 3600:.2f} s per audio hour),"
+              f" speech share {(probs > onset).mean():.3f} of {len(probs)} 10 ms frames (onset"
+              f" {onset}), turns cover {sum(e - s for s, e, _ in turns) / PYANNOTE_SECONDS:.3f}"
+              f" of the audio, n_base {stats.get('n_base', 0)}, path {stats.get('path', '-')},"
+              f" speakers {stats.get('speakers', 0)}, {len(turns)} turns | ECAPA {rate} | stages"
+              f" (s): {' '.join(f'{k} {v:.3f}' for k, v in seconds.items())} | peak device memory"
+              f" {peak:.2f} GiB | VAD probabilities on the CPU within {prob_err:.2e} (limit"
+              f" {PROB_TOL})")
+
+        head = audio[: int(PYANNOTE_CPU_SECONDS * SR)]
+        got, cpu_stats = gd.diarize_waveform(head, num_speakers=4), {}
+        want = cd.diarize_waveform(head, num_speakers=4, stats=cpu_stats)
+        if not want:
+            check(got == [], f"6m: {len(got)} turns on the card where the CPU found no speech")
+            verdict = "no speech on either device"
+        else:
+            emb_err = max(rel_err(a, b) for a, b in zip(seen[("gpu", "_mapped_embeddings")],
+                                                        seen[("cpu", "_mapped_embeddings")]))
+            check(emb_err <= DIAR_EMB_TOL, f"6m: ECAPA's embeddings {emb_err:.2e} from the CPU's")
+            gap = cpu_stats.get("eigengap", 0.0)
+            if gap > DIAR_GAP:
+                check(got == want, "6m: the turns differ between the devices")
+            verdict = (f"embeddings within {emb_err:.2e} of the largest (limit {DIAR_EMB_TOL}),"
+                       f" eigengap {gap:.4f}: turns "
+                       + (f"equal ({len(want)})" if gap > DIAR_GAP else
+                          f"not held (the gap is at or below {DIAR_GAP}; {len(got)} and"
+                          f" {len(want)} turns)"))
+        print(f"[6m pyannote + ECAPA] the first {PYANNOTE_CPU_SECONDS:.0f} s on the card against"
+              f" the CPU: {verdict}")
+        del gd, cd
+    torch.cuda.empty_cache()
+
+
 def titanet_flops_per_frame(dims) -> float:
     """Multiply-adds x 2 of TitaNet's convs and pooling GEMMs per frame."""
     c = dims.filters
@@ -3889,6 +4282,8 @@ def main() -> int:
     phase_flow_parity(args.seed)
     phase_serving_parity(args.seed)
     phase_parallel_parity(args.seed)
+    phase_separation_parity(args.seed)
+    phase_flow_parity(args.seed, stem=True)
     main_run = phase_main_path(args.seed)
     phase_stage_times(main_run, a, e)
     phase_align_stage_times(main_run, d["a"])
@@ -3899,6 +4294,10 @@ def main() -> int:
     flow_entries = phase_flow_kernels(phase_flow_main(args.seed, smi), args.seed)
     serving_entries = phase_serving_kernels(phase_serving_main(args.seed, smi), args.seed)
     _, parallel_entries = phase_parallel_main(args.seed, smi)
+    config3_entries = phase_flow_kernels(
+        {"config 3": phase_config3_main(args.seed, smi)}, args.seed + 6, tag="6l",
+        entry=lambda run, letter: True, label=lambda run: "BASELINE config 3, 6k")
+    phase_pyannote_ecapa_main(args.seed, smi)
 
     import torch
 
@@ -3968,6 +4367,9 @@ def main() -> int:
         # the parallel CLI flow at full width (6j, in process): B (f32 split and the bf16
         # aligner), C, D and E at each shape it launched them at, with their launches there
         *parallel_entries,
+        # BASELINE config 3 through the CLI (6k: large-v3 "default", stemming): B, C, D and E
+        # at each shape it launched them at (6l), with their launches there
+        *config3_entries,
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -225,18 +225,10 @@ def test_marblenet_vad_probs_match_jax(model_dir, tmp_path, monkeypatch):
 
 
 def test_what_is_not_ported_is_refused(tmp_path, monkeypatch, no_libav):
-    """The pyannote VAD and ECAPA-TDNN raise naming the ROADMAP item where
-    the JAX package would take them; where the libav decoder cannot load
-    (as on the card), a non-WAV manifest raises naming libav."""
+    """Where the libav decoder cannot load (as on the card), a non-WAV
+    manifest raises naming libav. The pyannote VAD and ECAPA-TDNN are
+    ported and refuse nothing (tests/test_torch_pyannote_ecapa.py)."""
     monkeypatch.setenv("WNT_MODEL_DIR", str(tmp_path))
-    _, pcfg = _configs(tmp_path)
-    (tmp_path / "pyannote_segmentation.npz").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 5"):
-        NeuralDiarizer(pcfg, device="cpu")
-    os.remove(tmp_path / "pyannote_segmentation.npz")
-    pcfg.diarizer.speaker_embeddings.model_path = "ecapa_tdnn"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 5"):
-        NeuralDiarizer(pcfg, device="cpu")
     _, pcfg = _configs(tmp_path)
     config.write_manifest(pcfg.diarizer.manifest_filepath, str(tmp_path / "call.opus"))
     with pytest.raises(port_decode.AudioDecodeError, match="libav"):

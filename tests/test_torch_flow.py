@@ -1,7 +1,7 @@
 """The port's CLI flow against the JAX package's, end to end on the CPU.
 
 Both flows run ``run_sequential`` in one process on ``tests/assets/test.opus``
-(22.6 s) with ``stemming=False``, ``batch_size=2``, ``language="en"`` and
+(22.6 s) with ``stemming=True``, ``batch_size=2``, ``language="en"`` and
 ``device="cpu"``, each on its own copy of the audio in its own working
 directory (the writers put the outputs beside the input), and their
 ``.txt`` and ``.srt`` bytes must be equal.
@@ -9,8 +9,11 @@ directory (the writers put the outputs beside the input), and their
 Both read one ``$WNT_MODEL_DIR``, saved once by the JAX package's
 ``save_params``: the Whisper tree at the small dims of
 ``tests/test_torch_slice.py`` under the name ``tiny.en``, the small
-aligner, a small TitaNet as ``titanet_large.npz``, the telephonic MSDD, and
-the punctuation model at the small dims; and ``chip_smoke.word_vocab``, a
+aligner, a small TitaNet as ``titanet_large.npz``, the telephonic MSDD, the
+punctuation model at the small dims, and htdemucs at
+``tests/test_torch_separation.py``'s small dims with its sidecar (the
+init's scales, so that the vocals keep the voices: each flow separates
+them and runs every later stage on them); and ``chip_smoke.word_vocab``, a
 ``vocab.json`` whose tokens are words, some capitalised or ending in "."
 or ",", so that the random decode gives words to align, punctuate and
 split into sentences. Without
@@ -36,11 +39,13 @@ reach: its model directory holds TitaNet as a converted Jasper stack
 packages read, so the child builds it at the test's dims. Its reference
 is the JAX flow on that directory: the JAX sequential run's words (ASR
 and alignment read no diarizer checkpoint) with the JAX diarizer's turns
-on that directory, through the JAX flow's ``_merge_and_write``. The
-child runs on one torch thread (``OMP_NUM_THREADS``), as this process.
+on the JAX separator's vocals, through the JAX flow's
+``_merge_and_write``. The child runs on one torch thread
+(``OMP_NUM_THREADS``), as this process.
 """
 
 import argparse
+import ast
 import dataclasses
 import functools
 import json
@@ -62,6 +67,8 @@ from test_torch_diarize_models import (  # noqa: F401  (_one_blas_thread: autous
     JASPER, MSDD, N_MELS, TITANET, _one_blas_thread, _seeded_tree)
 from test_torch_diarize_pipeline import PORT_TITANET
 from test_torch_post import OPUS, REPO, port_decoder  # noqa: F401  (a fixture)
+from test_torch_separation import SMALL as SMALL_DEMUCS
+from test_torch_separation import htdemucs_tree, install_htdemucs
 from test_torch_slice import DIMS, _one_torch_thread, built_decoder  # noqa: F401  (autouse; a fixture)
 from whisper_nemo_tpu.engine.checkpoint import save_params
 from whisper_nemo_tpu.models import conv_asr as jax_conv_asr
@@ -92,6 +99,7 @@ def model_dir(tmp_path_factory):
     small_xlmr = vars(punctuation.SMALL_DIMS)
     save_params(str(tmp / "kredor_punctuate-all.npz"), _seeded_tree(
         jax_punct.init_xlmr_params, jax_punct.XlmRobertaDims(**small_xlmr), seed=13))
+    install_htdemucs(tmp, htdemucs_tree(SMALL_DEMUCS, seed=15, every_leaf=False), SMALL_DEMUCS)
     write_word_vocab(str(tmp))
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("WNT_MODEL_DIR", str(tmp))
@@ -113,8 +121,9 @@ def model_dir(tmp_path_factory):
 def flows(model_dir, port_decoder, tmp_path_factory):  # noqa: F811
     """Each flow's output bytes and working directory, and the port's
     diarizer stats and punctuation rows."""
-    stats, rows, jax_words = {}, [], []
-    out = {"stats": stats, "rows": rows, "jax_words": jax_words}
+    stats, rows, jax_words, vocals, jax_labels = {}, [], [], [], {}
+    out = {"stats": stats, "rows": rows, "jax_words": jax_words, "vocals": vocals,
+           "jax_labels": jax_labels}
     waveform_call = pipeline.NeuralDiarizer.diarize_waveform
     apply_labels = flow.apply_punctuation_labels
     jax_alignment = jax_flow.run_alignment
@@ -126,12 +135,20 @@ def flows(model_dir, port_decoder, tmp_path_factory):  # noqa: F811
     def diarize_waveform(self, audio, **kw):
         return waveform_call(self, audio, stats=stats, **kw)
 
+    def jax_predict(self, words, _predict=jax_punct.PunctuationModel.predict, **kw):
+        jax_labels[(tuple(words), *sorted(kw.items()))] = _predict(self, words, **kw)
+        return jax_labels[(tuple(words), *sorted(kw.items()))]
+
     def apply_punctuation_labels(wsm, labeled):
         rows.append((len(wsm), len(labeled)))
         return apply_labels(wsm, labeled)
 
     with pytest.MonkeyPatch.context() as mp:
+        for module in (flow, jax_flow):
+            mp.setattr(module, "maybe_separate_vocals", lambda *a, _f=module.maybe_separate_vocals:
+                       vocals.append(_f(*a)) or vocals[-1])
         mp.setattr(pipeline.NeuralDiarizer, "diarize_waveform", diarize_waveform)
+        mp.setattr(jax_punct.PunctuationModel, "predict", jax_predict)
         mp.setattr(flow, "apply_punctuation_labels", apply_punctuation_labels)
         mp.setattr(jax_flow, "run_alignment", run_alignment)
         for name, module in (("port", flow), ("jax", jax_flow)):
@@ -139,7 +156,7 @@ def flows(model_dir, port_decoder, tmp_path_factory):  # noqa: F811
             shutil.copy(OPUS, work / "call.opus")
             mp.chdir(work)
             module.run_sequential(argparse.Namespace(
-                audio=str(work / "call.opus"), stemming=False, suppress_numerals=False,
+                audio=str(work / "call.opus"), stemming=True, suppress_numerals=False,
                 model_name="tiny.en", batch_size=2, language="en", device="cpu",
                 domain="telephonic"))
             out[name] = {"txt": (work / "call.txt").read_bytes(),
@@ -149,7 +166,7 @@ def flows(model_dir, port_decoder, tmp_path_factory):  # noqa: F811
 
 def _args(audio, **kw):
     return argparse.Namespace(
-        audio=str(audio), stemming=False, suppress_numerals=False, model_name="tiny.en",
+        audio=str(audio), stemming=True, suppress_numerals=False, model_name="tiny.en",
         batch_size=2, language="en", device="cpu", domain="telephonic", **kw)
 
 
@@ -190,9 +207,16 @@ def parallel_flows(model_dir, flows, tmp_path_factory):
         work = tmp_path_factory.mktemp("flow_jasper_jax")
         shutil.copy(OPUS, work / "call.opus")
         mp.chdir(work)
-        audio = jax_flow.fw.decode_audio(str(work / "call.opus"))
+        vocals = jax_flow.maybe_separate_vocals(str(work / "call.opus"), True, "cpu")
+        assert vocals.endswith("vocals.wav")
+        audio = jax_flow.fw.decode_audio(vocals)
         turns = jax_flow.run_diarization(audio, str(work / "temp_outputs"))
         words, language = flows["jax_words"][0]
+        # the JAX punctuation model's labels depend on the words alone: those of
+        # the JAX sequential run, over the same words, where it has them
+        predict = jax_punct.PunctuationModel.predict
+        mp.setattr(jax_punct.PunctuationModel, "predict", lambda self, w, **kw: flows[
+            "jax_labels"].get((tuple(w), *sorted(kw.items()))) or predict(self, w, **kw))
         jax_flow._merge_and_write(words, turns, language, str(work / "call.opus"))
         out["jax_jasper"] = {"txt": (work / "call.txt").read_bytes(),
                              "srt": (work / "call.srt").read_bytes()}
@@ -212,9 +236,12 @@ def test_flow_writes_the_jax_flows_bytes(flows):
 
 
 def test_flow_runs_every_stage(flows):
-    """Words came out of ASR and alignment, the punctuation model labelled
-    each (not the fallback), the diarizer found more than one speaker, the
-    files carry the BOM, and temp_outputs is gone."""
+    """Each flow separated the vocals, words came out of ASR and
+    alignment, the punctuation model labelled each (not the fallback), the
+    diarizer found more than one speaker, the files carry the BOM, and
+    temp_outputs is gone."""
+    assert flows["vocals"] == [str(flows[name]["work"] / "temp_outputs" / "htdemucs" / "call" /
+                                   "vocals.wav") for name in ("port", "jax")]
     n_words, n_labels = flows["rows"][0]
     assert n_words == n_labels > 20 and len(flows["rows"]) == 1
     assert flows["stats"]["speakers"] > 1
@@ -227,22 +254,47 @@ def test_flow_runs_every_stage(flows):
         assert sorted(os.listdir(flows[name]["work"])) == ["call.opus", "call.srt", "call.txt"]
 
 
-def test_cli_entry_point_runs():
-    proc = subprocess.run([sys.executable, "-m", "whisper_nemo_tpu_torch.cli", "--help"],
-                          cwd=REPO, capture_output=True, text=True, timeout=120)
+ENTRY_POINTS = ("whisper_nemo_tpu_torch.cli", "whisper_nemo_tpu_torch.cli.parallel",
+                "whisper_nemo_tpu_torch.cli.nemo_process")
+
+
+@pytest.fixture(scope="module")
+def entry_point_help():
+    """``python -m <module> --help`` of each entry point, run as ``-m`` runs
+    it (``runpy.run_module`` as ``__main__``), all in one fresh interpreter:
+    {module: (exit code, stdout)}."""
+    code = (
+        "import contextlib, io, runpy, sys\n"
+        f"for m in {ENTRY_POINTS!r}:\n"
+        "    sys.argv, out, rc = [m, '--help'], io.StringIO(), 0\n"
+        "    try:\n"
+        "        with contextlib.redirect_stdout(out):\n"
+        "            runpy.run_module(m, run_name='__main__', alter_sys=True)\n"
+        "    except SystemExit as exc:\n"
+        "        rc = exc.code\n"
+        "    print(repr((m, rc, out.getvalue())))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=180)
     assert proc.returncode == 0, proc.stderr
-    assert "--whisper-model" in proc.stdout and "--device" in proc.stdout
-    assert all(flag in proc.stdout for flag in ("--no-stem", "--batch-size", "--domain"))
+    rows = [ast.literal_eval(line) for line in proc.stdout.splitlines()]
+    return {m: (rc, out) for m, rc, out in rows}
+
+
+def test_cli_entry_point_runs(entry_point_help):
+    rc, out = entry_point_help["whisper_nemo_tpu_torch.cli"]
+    assert rc == 0, out
+    assert "--whisper-model" in out and "--device" in out
+    assert all(flag in out for flag in ("--no-stem", "--batch-size", "--domain"))
 
 
 @pytest.mark.parametrize("module,flags", [
     ("whisper_nemo_tpu_torch.cli.parallel", ("--subprocess-diarization", "--whisper-model")),
     ("whisper_nemo_tpu_torch.cli.nemo_process", ("--audio", "--device", "--domain"))])
-def test_parallel_entry_points_run(module, flags):
-    proc = subprocess.run([sys.executable, "-m", module, "--help"], cwd=REPO,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert all(flag in proc.stdout for flag in flags)
+def test_parallel_entry_points_run(entry_point_help, module, flags):
+    rc, out = entry_point_help[module]
+    assert rc == 0, out
+    assert all(flag in out for flag in flags)
 
 
 def test_parallel_flow_in_process_writes_the_jax_flows_bytes(flows, parallel_flows):

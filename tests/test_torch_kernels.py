@@ -12,8 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import speechlike
+from chip_smoke import DEMUCS_SMALL, speechlike
+from whisper_nemo_tpu_torch.engine.checkpoint import to_device
+from whisper_nemo_tpu_torch.engine.precision import full_f32
+from whisper_nemo_tpu_torch.models import htdemucs
 from whisper_nemo_tpu_torch.ops import attention, beam_permute, cross_decode, ctc, mel, self_decode
+from whisper_nemo_tpu_torch.ops.resample import resample_poly
 
 
 @pytest.fixture
@@ -395,10 +399,11 @@ def _hold_kernel_b(got, want, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h", [(4, 16), (8, 16), (4, 20)])
+@pytest.mark.parametrize("b,h", [(4, 16), (8, 16), (4, 20), (8, 20)])
 def test_encoder_attention_f32_on_cuda(cuda_device, b, h):
     """Kernel B at f32 at the encoders' T = 1500 (medium.en's 16 heads at
-    batch 4 and 8, large-v2's 20 at batch 4) on N(0, 1) inputs, within
+    batch 4 and 8, large-v2's 20 at batch 4, large-v3's 20 at config 3's
+    batch 8) on N(0, 1) inputs, within
     1e-4 of the plain version's f32 (TF32 off); one launch a call. The
     split's error is relative: of order 2^-16 of |q||k| in each logit and
     of |v| in the output."""
@@ -708,3 +713,87 @@ def test_log_mel_kernel_shapes_on_cuda(cuda_device, t, n_mels):
     assert got.shape == (3, t // mel.HOP_LENGTH, n_mels)
     assert bool(torch.isfinite(got).all()) and bool((got[2] == -10.0).all())
     assert err <= 1e-4 and err64 <= 5e-5, (err, err64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_windows", [8, 2])
+def test_log_mel_kernel_large_v3_batches_on_cuda(cuda_device, n_windows):
+    """Kernel C at config 3's shapes: batches of 8 and 2 windows (5 minutes
+    at batch 8 in two batches) at large-v3's 128 mel bands, one launch a
+    batch, within 1e-4 of the plain version and 5e-5 of float64."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        waves = speechlike(n_windows * 30.0, n_windows).reshape(n_windows, mel.N_SAMPLES)
+        waves = torch.from_numpy(waves).to(cuda_device)
+        launches = mel.log_mel_raw.launches
+        got = mel.log_mel_raw(waves, 128)
+        err, err64 = _log_mel_errors(waves, 128, got)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert mel.log_mel_raw.launches == launches + 1
+    assert got.shape == (n_windows, 3000, 128)
+    assert err <= 1e-4 and err64 <= 5e-5, (err, err64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n_visible", [(256, 5), (256, 226), (384, 300), (448, 448)])
+def test_self_decode_kernel_large_v3_on_cuda(cuda_device, s, n_visible):
+    """Kernel E at f32 at config 3's beam cache: 8 windows at beam 5 (B·K =
+    40) with large-v3's 20 heads of 64, caches of 256 to 448 positions,
+    through the wrapper's cluster choice, within E_BOUNDS of the plain
+    version; positions past n_visible hold NaN."""
+    g = torch.Generator(device=cuda_device).manual_seed(s + n_visible)
+    windows, beam, h = 8, 5, 20
+    bk = windows * beam
+    q = torch.randn((bk, 1, h, 64), device=cuda_device, generator=g)
+    k, v = (torch.randn((2, bk, h, 64, s), device=cuda_device, generator=g) for _ in range(2))
+    for x in (k, v):
+        x[..., n_visible:] = float("nan")
+    anc = torch.randint(0, beam, (windows, beam, s), device=cuda_device, generator=g,
+                        dtype=torch.int32)
+    mask = torch.where(torch.arange(s, device=cuda_device) < n_visible, 0.0,
+                       float("-inf"))[None, None, None, :]
+    launches = self_decode.self_attention_decode_ancestry_layered.launches
+    got = self_decode.self_attention_decode_ancestry_layered(q, k, v, anc, mask, 1, beam,
+                                                              n_visible=n_visible)
+    want = attention.attention_kt_ancestry(q, k[1, ..., :n_visible], v[1, ..., :n_visible],
+                                           anc[..., :n_visible], mask[..., :n_visible])
+    torch.cuda.synchronize()
+    assert self_decode.self_attention_decode_ancestry_layered.launches == launches + 1
+    torch.testing.assert_close(got, want, atol=E_BOUNDS[torch.float32][0],
+                               rtol=E_BOUNDS[torch.float32][1])
+
+
+@pytest.mark.cuda
+def test_resample_poly_on_cuda(cuda_device):
+    """The polyphase resample 44.1 kHz -> 16 kHz of 10 s on the card against
+    the same GEMM on the CPU, within 1e-5 (TF32 off)."""
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal((2, 441_000)).astype(np.float32))
+    with full_f32():
+        got = resample_poly(x.to(cuda_device), 44100, 16000)
+    torch.testing.assert_close(got.cpu(), resample_poly(x, 44100, 16000), atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_htdemucs_forward_on_cuda(cuda_device):
+    """htdemucs at small dims (chip_smoke.DEMUCS_SMALL) on the card against
+    the CPU, f32 with TF32 off: the forward of two mixes of 8,000 samples
+    and apply_segments over 8 windows, 3 a batch, each within 1e-4 of the
+    largest CPU output."""
+    dims = htdemucs.HTDemucsDims(**DEMUCS_SMALL)
+    params = htdemucs.init_htdemucs_params(dims, "cpu", torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(9)
+    mix = torch.from_numpy((0.2 * rng.standard_normal((2, 2, 8000))).astype(np.float32))
+    wave = torch.from_numpy((0.2 * rng.standard_normal((2, 47_500))).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        p = to_device(params, dev)
+        with full_f32(), torch.inference_mode():
+            outs[str(dev)] = (
+                htdemucs.htdemucs_forward(p, mix.to(dev), dims).cpu(),
+                htdemucs.apply_segments(p, wave, dims, batch_size=3, device_out=True).cpu())
+    for got, want in zip(outs[str(cuda_device)], outs["cpu"]):
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -222,9 +222,11 @@ def test_gpu_devices_refuse_without_cuda(monkeypatch, device):
 
 def test_what_the_flow_does_not_port_is_refused(monkeypatch, tmp_path):
     """A mesh (flag or WNT_MESH) names item 6b, in both flows, before any
-    stage runs: the parallel flow itself runs (tests/test_torch_flow.py);
-    stemming with htdemucs.npz installed names item 5, and without it warns
-    and keeps the original audio, as the JAX flow does."""
+    stage runs: the parallel flow itself runs (tests/test_torch_flow.py).
+    Stemming without htdemucs.npz warns and keeps the original audio, as
+    the JAX flow does; with an unreadable one it raises, where the JAX flow
+    would keep the original audio on any error (the separator itself runs
+    in tests/test_torch_separation.py and tests/test_torch_flow.py)."""
     monkeypatch.delenv("WNT_MESH", raising=False)
     for run in (flow.run_sequential, flow.run_parallel):
         with pytest.raises(NotImplementedError, match="item 6b"):
@@ -234,12 +236,13 @@ def test_what_the_flow_does_not_port_is_refused(monkeypatch, tmp_path):
         with pytest.raises(NotImplementedError, match="item 6b"):
             run(_args())
     monkeypatch.setenv("WNT_MODEL_DIR", str(tmp_path))
-    assert flow.maybe_separate_vocals("a.wav", True) == "a.wav"
-    assert flow.maybe_separate_vocals("a.wav", False) == "a.wav"
+    temp = str(tmp_path / "temp_outputs")
+    assert flow.maybe_separate_vocals("a.wav", True, "cpu", temp) == "a.wav"
+    assert flow.maybe_separate_vocals("a.wav", False, "cpu", temp) == "a.wav"
     (tmp_path / "htdemucs.npz").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        flow.maybe_separate_vocals("a.wav", True)
-    assert flow.maybe_separate_vocals("a.wav", False) == "a.wav"
+    with pytest.raises(EOFError):
+        flow.maybe_separate_vocals("a.wav", True, "cpu", temp)
+    assert flow.maybe_separate_vocals("a.wav", False, "cpu", temp) == "a.wav"
 
 
 def test_punctuation_falls_back_only_when_the_model_cannot_be_read(monkeypatch, tmp_path):

@@ -264,7 +264,9 @@ def test_port_imports_no_jax():
             "whisper_nemo_tpu_torch.serving.handler", "whisper_nemo_tpu_torch.serving.schemas",
             "whisper_nemo_tpu_torch.serving.download", "whisper_nemo_tpu_torch.utils.monitor",
             "whisper_nemo_tpu_torch.utils.profiling", "whisper_nemo_tpu_torch.parallel.branch",
-            "whisper_nemo_tpu_torch.cli.parallel", "whisper_nemo_tpu_torch.cli.nemo_process"
+            "whisper_nemo_tpu_torch.cli.parallel", "whisper_nemo_tpu_torch.cli.nemo_process",
+            "whisper_nemo_tpu_torch.models.pyannet", "whisper_nemo_tpu_torch.models.ecapa",
+            "whisper_nemo_tpu_torch.models.htdemucs", "whisper_nemo_tpu_torch.ops.resample"
             } <= set(modules)
     code = (
         "import importlib, sys\n"

@@ -10,9 +10,10 @@ and SRT writers -> cleanup. Same flags, defaults and compute widths
 - ``--device``: ``auto`` and ``cuda`` run on the GPU (``cuda:N`` on that
   one) and raise without CUDA, naming ``--device cpu``; ``cpu`` runs on
   the host. The resolved device is passed to every model.
-- Stemming: the separator is not ported. Without ``htdemucs.npz`` the
-  flow warns and goes on with the original audio, as the JAX flow does
-  when its separator finds no checkpoint; with one it raises.
+- Stemming: without ``htdemucs.npz`` the flow warns and goes on with the
+  original audio, as the JAX flow does; any other error of the separator
+  raises, where the JAX flow catches every exception (on the card that
+  would hide a CUDA fault).
 - Punctuation: only a model that cannot be read (``tokenizers`` missing,
   an unreadable checkpoint) falls back to the original punctuation; any
   other error raises, where the JAX flow catches every exception.
@@ -48,6 +49,7 @@ from ..align import (
 from ..audio import write_wav
 from ..config import create_config
 from ..engine.checkpoint import model_cache_dir
+from ..models.htdemucs import separate_vocals
 from ..models.punctuation import PunctuationModel
 from ..post import (
     apply_punctuation_labels,
@@ -186,25 +188,22 @@ def _refuse_mesh(args) -> None:
         raise NotImplementedError(f"--mesh / WNT_MESH ({mesh!r}): a device mesh is {_MULTI_DEVICE}")
 
 
-def maybe_separate_vocals(audio_path: str, stemming: bool) -> str:
-    """Source separation (reference diarize.py:95-116). The separator is
-    not ported: with no ``htdemucs.npz`` the flow warns and goes on with
-    the original audio, as the JAX flow does; with one it raises rather
-    than skip a separation the user has weights for."""
+def maybe_separate_vocals(audio_path: str, stemming: bool, device: str, temp_dir: str) -> str:
+    """Source separation (reference diarize.py:95-116) on ``device``:
+    ``temp_dir/htdemucs/<track>/vocals.wav``. With no ``htdemucs.npz`` the
+    flow warns and goes on with the original audio, as the JAX flow does;
+    any other failure raises."""
     if not stemming:
         return audio_path
     ckpt = os.path.join(model_cache_dir(), "htdemucs.npz")
-    if os.path.exists(ckpt):
-        raise NotImplementedError(
-            f"{ckpt} is installed, but the htdemucs separator is not ported yet"
-            " (ROADMAP.md queue 1, item 5); pass --no-stem"
+    if not os.path.exists(ckpt):
+        logging.warning(
+            "Source splitting failed, using original audio file. "
+            "Use --no-stem argument to disable it. (%s)",
+            f"no separator checkpoint at {ckpt}; skipping source separation",
         )
-    logging.warning(
-        "Source splitting failed, using original audio file. "
-        "Use --no-stem argument to disable it. (%s)",
-        f"no separator checkpoint at {ckpt}; skipping source separation",
-    )
-    return audio_path
+        return audio_path
+    return separate_vocals(audio_path, temp_dir, device)
 
 
 @dataclass
@@ -359,7 +358,7 @@ def run_sequential(args) -> None:
     language = process_language_arg(args.language, args.model_name)
     temp_path = os.path.join(os.getcwd(), "temp_outputs")
 
-    vocal_target = maybe_separate_vocals(args.audio, args.stemming)
+    vocal_target = maybe_separate_vocals(args.audio, args.stemming, device, temp_path)
 
     with stage_timer("asr", logger):
         asr = run_asr(
@@ -414,7 +413,7 @@ def run_parallel(args) -> None:
     language = process_language_arg(args.language, args.model_name)
     temp_path = os.path.join(os.getcwd(), "temp_outputs")
 
-    vocal_target = maybe_separate_vocals(args.audio, args.stemming)
+    vocal_target = maybe_separate_vocals(args.audio, args.stemming, device, temp_path)
     audio = fw.decode_audio(vocal_target)
 
     def asr_branch(devices):

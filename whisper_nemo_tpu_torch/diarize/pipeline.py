@@ -5,10 +5,12 @@ takes the config tree of ``config.create_config`` (a manifest in,
 ``pred_rttms/<uri>.rttm`` out); ``SpeakerDiarizationPipeline`` is the
 pyannote-style facade over it at the ``"general"`` preset. Stages:
   (a) frame VAD: MarbleNet (or a converted ``.nemo`` Jasper stack) when a
-      checkpoint is installed, else the energy VAD, then the config's
-      hysteresis, padding and minimum durations;
-  (b) TitaNet embeddings of every scale's windows, gathered from one
-      feature array of the whole recording;
+      checkpoint is installed, else PyanNet (pyannote segmentation) when
+      ``pyannote_segmentation.npz`` is, else the energy VAD; then the
+      config's hysteresis, padding and minimum durations;
+  (b) TitaNet (or ECAPA-TDNN, where the config names ``ecapa_tdnn``)
+      embeddings of every scale's windows, gathered from one feature
+      array of the whole recording;
   (c) NME-SC clustering of the scale-weighted affinity (long-form
       over-clustering past ``embeddings_per_chunk`` segments);
   (d) MSDD refinement when an MSDD checkpoint is installed (or with
@@ -20,10 +22,8 @@ after each call.
 Checkpoints are the JAX package's ``.npz`` files under ``$WNT_MODEL_DIR``.
 Without one, ``force_large_models`` makes the production-size models from
 seeded generators (the energy VAD still cuts the segments, and the
-MarbleNet forward runs for its cost); otherwise a compact TitaNet is
-made. The pyannote segmentation VAD and the ECAPA-TDNN embedder are not
-ported (ROADMAP.md queue 1, item 5): where the JAX package would take
-them, the port raises.
+MarbleNet forward runs for its cost); otherwise a compact embedder is
+made.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from ..audio import decode_audio
 from ..config import DiarizationConfig
 from ..engine.checkpoint import load_params, model_cache_dir, to_device
 from ..engine.precision import full_f32
-from ..models import conv_asr, marblenet, msdd as msdd_mod, titanet
+from ..models import conv_asr, ecapa, marblenet, msdd as msdd_mod, pyannet, titanet
 from ..ops.features import HOP_LENGTH, SAMPLE_RATE, log_mel_features
 from ..vad.binarize import binarize_probs, filter_segments, median_smooth
 from ..vad.energy import frame_energy_probs
@@ -50,14 +50,14 @@ from .segments import ScaleSegment, map_scales_to_base, merge_frame_labels_to_tu
 
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 5)"
-
-# compact architecture used when no checkpoint is installed
+# compact architectures used when no checkpoint is installed
 _TITANET_SMALL = titanet.TitaNetDims(
     n_mels=80, filters=(128, 128, 128, 384), kernels=(3, 7, 11, 1), repeat=2,
     se_reduction=8, emb_dim=192,
 )
 _TITANET_LARGE = titanet.TitaNetDims()
+_ECAPA_SMALL = ecapa.EcapaDims(channels=64, agg_channels=96, res2net_scale=4, se_reduction=4,
+                               attn_hidden=32)
 
 
 def _load_cfg_sidecar(ckpt_path: str) -> Optional[dict]:
@@ -104,42 +104,48 @@ class NeuralDiarizer:
             if meta is not None:
                 self._vad_cfgs = [conv_asr.JasperBlockCfg(**b) for b in meta["blocks"]]
                 self.marblenet_dims = marblenet.MarbleNetDims(n_mels=meta["n_mels"])
-        elif os.path.exists(os.path.join(cache, "pyannote_segmentation.npz")):
-            raise NotImplementedError(
-                f"{cache} holds pyannote_segmentation.npz and no {d.vad.model_path}.npz:"
-                f" the pyannote segmentation VAD is {_NOT_PORTED}")
+
+        # a converted pyannote segmentation model is the VAD where no
+        # MarbleNet checkpoint is installed
+        self.pyannet_params = None
+        pyannet_ckpt = os.path.join(cache, "pyannote_segmentation.npz")
+        if self.vad_params is None and os.path.exists(pyannet_ckpt):
+            self.pyannet_params = load_params(pyannet_ckpt, self.device)
 
         # without a VAD checkpoint the energy VAD cuts the segments (random
         # logits would never cross the onset); force_large still runs a
         # production-size MarbleNet forward for its cost
         self._bench_vad_params = None
-        if self.vad_params is None and self._force_large:
+        if self.vad_params is None and self.pyannet_params is None and self._force_large:
             self._bench_vad_params = marblenet.init_marblenet_params(
                 self.marblenet_dims, self.device, self._generator(4))
 
         spk_name = d.speaker_embeddings.model_path or "titanet_large"
         if spk_name == "ecapa_tdnn":
-            raise NotImplementedError(f"the ECAPA-TDNN speaker embedder is {_NOT_PORTED}")
+            self._embed_fn, init_fn = ecapa.embed, ecapa.init_ecapa_params
+            full_dims, small_dims = ecapa.EcapaDims(), _ECAPA_SMALL
+        else:  # titanet_* (and speakerverification_speakernet, as in JAX)
+            self._embed_fn, init_fn = titanet.embed, titanet.init_titanet_params
+            full_dims, small_dims = _TITANET_LARGE, _TITANET_SMALL
         spk_ckpt = os.path.join(cache, f"{spk_name}.npz")
         self._spk_cfgs = None
         if os.path.exists(spk_ckpt):
             self.spk_params = load_params(spk_ckpt, self.device)
-            self.spk_dims = _TITANET_LARGE
+            self.spk_dims = full_dims
             meta = _load_cfg_sidecar(spk_ckpt)
             if meta is not None:
                 self._spk_cfgs = [conv_asr.JasperBlockCfg(**b) for b in meta["blocks"]]
                 self.spk_dims = titanet.TitaNetDims(n_mels=meta["n_mels"], emb_dim=meta["emb_dim"])
         else:
             if self._force_large:
-                self.spk_dims = _TITANET_LARGE
+                self.spk_dims = full_dims
             else:
                 logger.warning(
                     "no speaker-embedding checkpoint at %s; using a compact seeded random"
                     " %s (diarization quality will be meaningless until converted weights"
                     " are installed)", spk_ckpt, spk_name)
-                self.spk_dims = _TITANET_SMALL
-            self.spk_params = titanet.init_titanet_params(
-                self.spk_dims, self.device, self._generator(2))
+                self.spk_dims = small_dims
+            self.spk_params = init_fn(self.spk_dims, self.device, self._generator(2))
 
         self.msdd_params = None
         if d.msdd_model.model_path:
@@ -160,7 +166,8 @@ class NeuralDiarizer:
         if device is None:
             return self
         self.device = torch.device(device)
-        for attr in ("vad_params", "spk_params", "msdd_params", "_bench_vad_params"):
+        for attr in ("vad_params", "pyannet_params", "spk_params", "msdd_params",
+                     "_bench_vad_params"):
             tree = getattr(self, attr)
             if tree is not None:
                 setattr(self, attr, to_device(tree, self.device))
@@ -170,7 +177,7 @@ class NeuralDiarizer:
     def _embed(self, windows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         if self._spk_cfgs is not None:
             return conv_asr.speaker_embed(self.spk_params, self._spk_cfgs, windows, lengths)
-        return titanet.embed(self.spk_params, windows, lengths, self.spk_dims)
+        return self._embed_fn(self.spk_params, windows, lengths, self.spk_dims)
 
     def _frame_speech_probs(self, audio: np.ndarray, wave: torch.Tensor,
                             stats: Optional[dict] = None) -> np.ndarray:
@@ -187,6 +194,13 @@ class NeuralDiarizer:
                 if self.vad_params is not None:
                     probs = out.cpu().numpy()
                 # else: a force_large forward whose random output is discarded
+        elif self.pyannet_params is not None:
+            with _Stage(stats, "vad_pyannet", self.device):
+                native = pyannet.speech_probs(self.pyannet_params, wave[None])[0].cpu().numpy()
+            # PyanNet's frames (a 16.875 ms hop) onto the VAD's grid
+            t_native = (np.arange(len(native)) + 0.5) / pyannet.frames_per_second()
+            n_grid = max(1, int(len(audio) / SAMPLE_RATE / max(p.shift_length_in_sec, 1e-6)))
+            probs = np.interp((np.arange(n_grid) + 0.5) * p.shift_length_in_sec, t_native, native)
         with _Stage(stats, "vad_energy", self.device):
             if probs is None:
                 probs = frame_energy_probs(audio, frame_shift=p.shift_length_in_sec,
@@ -296,8 +310,8 @@ class NeuralDiarizer:
 
         ``stats``, where a caller passes a dict, receives the seconds of
         each stage under ``stats["seconds"]``, each timed after the device
-        finished it (``upload``, ``vad_marblenet``, ``vad_energy``,
-        ``segments``, ``features``, ``embed_<window>`` per scale,
+        finished it (``upload``, ``vad_marblenet``, ``vad_pyannet``,
+        ``vad_energy``, ``segments``, ``features``, ``embed_<window>`` per scale,
         ``affinity``, ``nme_search``, ``eigen``, ``kmeans``, ``msdd``,
         ``turns``), and the counts ``n_base``, ``windows`` (per scale),
         ``path`` (``dense``, ``nystrom`` or ``longform``), ``eigengap``,

@@ -6,10 +6,11 @@ read the same files. :func:`params_from_jax` turns the JAX nested tree
 into the port's: the same dict, tensors instead of arrays, conv weights
 from ``[k, in/groups, out]`` to PyTorch's ``[out, in/groups, k]``. Each
 family has its rule: Whisper's two convs and the wav2vec2 aligner's by
-name; in the diarization convnets (MarbleNet, TitaNet and the Jasper
-stacks of ``models/conv_asr.py``) every 3-D array, as they hold no other;
-MSDD's weights are matrices and keep their layout. :func:`save_params`
-writes a port tree back as such a file.
+name; in the diarization convnets (MarbleNet, TitaNet, ECAPA-TDNN, the
+Jasper stacks of ``models/conv_asr.py`` and PyanNet) every 3-D array, as
+they hold no other; MSDD's weights are matrices and keep their layout;
+htdemucs' tree is in PyTorch's layouts already and keeps them.
+:func:`save_params` writes a port tree back as such a file.
 """
 
 from __future__ import annotations
@@ -75,9 +76,12 @@ def _swap_conv_layout(params: Any) -> Any:
     """Conv weights between ``[k, in/groups, out]`` and ``[out, in/groups,
     k]``, either way (the swap is its own inverse): Whisper's two convs,
     the wav2vec2 feature extractor's and its grouped positional conv,
-    every 3-D array of a diarization convnet. Rebinds the weights in the
-    tree's own dicts."""
-    if "prologue" in params or "blocks" in params:  # MarbleNet, TitaNet, conv_asr
+    every 3-D array of a diarization convnet; none of htdemucs'. Rebinds
+    the weights in the tree's own dicts."""
+    if "tencoder" in params:  # htdemucs: the torch state dict's layouts
+        return params
+    # MarbleNet, TitaNet, ECAPA and conv_asr; PyanNet
+    if "prologue" in params or "blocks" in params or "convs" in params:
         return _permute_3d(params)
     convs = [params.get("encoder", {}).get(name) for name in _CONV_KEYS]
     if "fe" in params:  # wav2vec2

@@ -1,2 +1,3 @@
 """Kernels and tensor ops: attention, cross- and self-attention decode, beam permute,
-mel, framing, CTC, and the diarization models' log-mel features."""
+mel, framing, CTC, the diarization models' log-mel features, and the polyphase
+resample."""
