@@ -80,6 +80,24 @@ Phases, one line each:
      the speaker turns equal, and the .txt and .srt bytes of the CPU's
      diarization, punctuation and writers over the card's words equal to
      the card's;
+  5j. converted checkpoints: seeded sources in the published layouts at
+     the published dims (an OpenAI medium.en .pt in f16; .nemo tars of
+     vad_multilingual_marblenet, titanet_large and diar_msdd_telephonic;
+     pyannote segmentation-3.0's lightning pytorch_model.bin; an htdemucs
+     .th whose klass is a class of a module no process here imports; HF
+     directories of MMS-300M and XLM-R base cut to 2 layers, written by
+     write_safetensors), each converted by `python -m
+     whisper_nemo_tpu_torch.cli.convert` in a new process (seconds,
+     bytes, peak RSS; jax, the JAX package, transformers, safetensors and
+     demucs never imported; without PyYAML the .nemo kinds must raise
+     naming it and convert in process from the config dict); then, the
+     counts zeroed just before: medium.en "float16" greedy from the
+     converted .npz and from the converter's tree in memory on 60 s of
+     four voices, tokens equal, kernels C, B and A launched; the converted
+     aligner's emissions (B) and punctuation labels; the diarizer on the
+     converted NeMo stack (models/conv_asr.py), PyanNet and htdemucs on
+     the card against the CPU within 5e's, 6m's and 5i's bounds; A, B and
+     C held against their plain versions at the shapes it launched;
   6. the main path, as the CLI flow runs it: WhisperModel("medium.en",
      compute_type="int8") and BatchedInferencePipeline.transcribe(
      batch_size=32) at its default beam 5 on two requests of 20 minutes
@@ -94,10 +112,12 @@ Phases, one line each:
   6c. the sequential main path, the CLI's --batch-size 0 call:
      WhisperModel("medium.en", compute_type="int8").transcribe(audio,
      None, suppress_tokens=[-1], vad_filter=True) at its defaults (beam
-     5, the temperature ladder, conditioning on the previous text,
-     timestamps), one warm request of one window (temperatures 0 and 0.2
-     only) and one timed request of 50 s; then the openai facade on the
-     same audio with the serving handler's arguments; launches of C, B, A
+     5, the temperature ladder, timestamps; conditioning on the previous
+     text is on, but one seek window has no earlier text, so only 5c
+     decodes a conditioned window, at small dims), one warm request of one window (temperatures 0 and 0.2
+     only) and one timed request of 25 s (one seek window); then the
+     openai facade on the same audio with the serving handler's
+     arguments; launches of C, B, A
      and E checked against the windows and decode steps; then the
      sequential request's stage times;
   6d. the main path at the default width: WhisperModel("medium.en",
@@ -196,7 +216,7 @@ Phases, one line each:
 Any phase that fails raises, and the script exits non-zero without the
 last line. Weights are random from --seed unless $WNT_MODEL_DIR holds
 medium.en.npz, ctc_aligner.npz and (for 6e) the diarization checkpoints;
-phases 5f, 5g, 5h, 6f, 6h, 6j, 6k and 6m make their own model
+phases 5f, 5g, 5h, 5j, 6f, 6h, 6j, 6k and 6m make their own model
 directories, 5f-6k with a vocabulary whose tokens are words
 (``word_vocab``).
 """
@@ -1831,10 +1851,12 @@ def phase_default_main(seed: int) -> dict:
 
 def phase_sequential_main(main: dict, seed: int) -> dict:
     """The CLI's --batch-size 0 call on medium.en int8 (the main path's
-    model): beam 5, the default ladder, conditioning, timestamps, VAD. One
-    warm request of one window on the ladder's first two temperatures (the
-    beam decode and the sampled one), one timed request of 50 s; then the
-    serving handler's call through the openai facade (load_model, int8,
+    model): beam 5, the default ladder, timestamps, VAD (conditioning is
+    on, but a single seek window has no earlier text to condition on;
+    phase 5c decodes the conditioned windows). One warm request of one window on the ladder's first two temperatures (the
+    beam decode and the sampled one), one timed request of 25 s (one seek
+    window); then the serving handler's call through the openai facade
+    (load_model, int8,
     temperature 0, no conditioning, greedy) on the same audio. Each run's
     kernel launches are checked against its windows and decode steps: C
     one per seek window (medium.en is English-only: no detection runs the
@@ -1896,10 +1918,10 @@ def phase_sequential_main(main: dict, seed: int) -> dict:
         return [{"start": s.start, "end": s.end, "no_speech_prob": s.no_speech_prob}
                 for s in segments]
 
-    audio = speechlike(50.0, seed + 8)
+    audio = speechlike(25.0, seed + 8)
     run("warm request, 25 s, temperatures 0 and 0.2",
         lambda a: cli(a, temperature=(0.0, 0.2)), eng, speechlike(25.0, seed + 9), True)
-    timed = run("timed request, 50 s (the CLI's --batch-size 0 call)", cli, eng, audio, True)
+    timed = run("timed request, 25 s (the CLI's --batch-size 0 call)", cli, eng, audio, True)
     t0 = time.time()
     handler_model = load_model("medium.en", "cuda", compute_type="int8", seed=seed)
     torch.cuda.synchronize()
@@ -1913,7 +1935,7 @@ def phase_sequential_main(main: dict, seed: int) -> dict:
         check(set(out) == {"text", "segments", "language", "duration"}, "6c: openai dict keys")
         return out["segments"]
 
-    handler_run = run("openai facade, the serving handler's call, 50 s", handler,
+    handler_run = run("openai facade, the serving handler's call, 25 s", handler,
                       handler_model.engine, audio, False)
     handler_model.engine.unload()
     return {"timed": timed, "handler": handler_run}
@@ -4230,6 +4252,742 @@ def phase_pyannote_ecapa_main(seed: int, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -- converted checkpoints (phase 5j) -------------------------------------------
+
+CONVERTED_SECONDS = 60.0  # 5j's audio for Whisper, the diarizer and PyanNet
+DEMUCS_CONVERTED_SECONDS = 10.0  # 5j's mix for htdemucs
+# the modules a conversion must not import: the card has none but torch's
+CONVERT_BANNED = ("jax", "jaxlib", "whisper_nemo_tpu", "transformers", "safetensors", "demucs")
+
+
+class SeededTensors:
+    """Seeded float32 tensors on ``device``, returned on the CPU: weights
+    normal over the square root of their fan-in, scales 1 ± 0.25, shifts
+    ±0.1 (a generator on the card draws fast; its numbers are its own)."""
+
+    def __init__(self, seed: int, device):
+        import torch
+
+        self.device = torch.device(device)
+        self.g = torch.Generator(device=self.device).manual_seed(seed)
+
+    def w(self, *shape):
+        import torch
+
+        fan_in = int(np.prod(shape[1:])) or 1
+        return (torch.randn(shape, device=self.device, generator=self.g) / fan_in**0.5).cpu()
+
+    def shift(self, n):
+        import torch
+
+        return (0.1 * torch.randn(n, device=self.device, generator=self.g)).cpu()
+
+    def scale(self, n):
+        import torch
+
+        return (0.75 + 0.5 * torch.rand(n, device=self.device, generator=self.g)).cpu()
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """A ``model.safetensors`` of float32 tensors: an 8-byte little-endian
+    header length, the JSON header (dtype, shape, byte offsets), the
+    bytes."""
+    header, offset = {}, 0
+    arrays = {k: np.ascontiguousarray(v.numpy(), "<f4") for k, v in tensors.items()}
+    for k, v in arrays.items():
+        header[k] = {"dtype": "F32", "shape": list(v.shape),
+                     "data_offsets": [offset, offset + v.nbytes]}
+        offset += v.nbytes
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for v in arrays.values():
+            f.write(v.tobytes())
+
+
+@contextlib.contextmanager
+def foreign_class(module: str, name: str):
+    """A class ``module.name`` of a package no process here can import.
+    Pickle imports a global's module while saving, so within the block
+    the module stands in ``sys.modules``; after it, the entries are gone."""
+    import types
+
+    parts = module.split(".")
+    names = [".".join(parts[: i + 1]) for i in range(len(parts))]
+    cls = type(name, (), {"__module__": module, "__qualname__": name})
+    mods = {n: types.ModuleType(n) for n in names}
+    setattr(mods[module], name, cls)
+    saved = {n: sys.modules.get(n) for n in names}
+    sys.modules.update(mods)
+    try:
+        yield cls
+    finally:
+        for n, m in saved.items():
+            if m is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = m
+
+
+def openai_whisper_state(dims, t: SeededTensors) -> dict:
+    """An OpenAI whisper ``model_state_dict`` at ``dims`` (f16 as OpenAI
+    ships it): ``encoder.blocks.N.attn.query`` names, ``mlp.0``/``mlp.2``,
+    ``positional_embedding``, no key-projection bias."""
+    sd, d = {}, dims.n_audio_state
+
+    def lin(p, o, i, bias=True):
+        sd[f"{p}.weight"] = t.w(o, i)
+        if bias:
+            sd[f"{p}.bias"] = t.shift(o)
+
+    def ln(p):
+        sd[f"{p}.weight"], sd[f"{p}.bias"] = t.scale(d), t.shift(d)
+
+    def attn(p):
+        lin(f"{p}.query", d, d)
+        lin(f"{p}.key", d, d, bias=False)
+        lin(f"{p}.value", d, d)
+        lin(f"{p}.out", d, d)
+
+    def block(p, cross):
+        attn(f"{p}.attn")
+        ln(f"{p}.attn_ln")
+        if cross:
+            attn(f"{p}.cross_attn")
+            ln(f"{p}.cross_attn_ln")
+        lin(f"{p}.mlp.0", 4 * d, d)
+        lin(f"{p}.mlp.2", d, 4 * d)
+        ln(f"{p}.mlp_ln")
+
+    sd["encoder.conv1.weight"], sd["encoder.conv1.bias"] = t.w(d, dims.n_mels, 3), t.shift(d)
+    sd["encoder.conv2.weight"], sd["encoder.conv2.bias"] = t.w(d, d, 3), t.shift(d)
+    sd["encoder.positional_embedding"] = t.w(dims.n_audio_ctx, d)
+    for i in range(dims.n_audio_layer):
+        block(f"encoder.blocks.{i}", cross=False)
+    ln("encoder.ln_post")
+    sd["decoder.token_embedding.weight"] = t.w(dims.n_vocab, d)
+    sd["decoder.positional_embedding"] = t.w(dims.n_text_ctx, d)
+    for i in range(dims.n_text_layer):
+        block(f"decoder.blocks.{i}", cross=True)
+    ln("decoder.ln")
+    return {k: v.half() for k, v in sd.items()}
+
+
+def _bn(sd: dict, t: SeededTensors, p: str, c: int) -> None:
+    import torch
+
+    sd[f"{p}.weight"], sd[f"{p}.bias"] = t.scale(c), t.shift(c)
+    sd[f"{p}.running_mean"], sd[f"{p}.running_var"] = t.shift(c), t.scale(c)
+    sd[f"{p}.num_batches_tracked"] = torch.tensor(1000)
+
+
+def jasper_state(cfgs, n_in: int, t: SeededTensors) -> dict:
+    """NeMo ConvASREncoder tensors: ``mconv.<i>.conv`` convs, bare batch
+    norms, activations and dropout holding none, squeeze-excite ``fc`` at
+    a block's tail, the residual under ``res.0``."""
+    sd = {}
+    for bi, cfg in enumerate(cfgs):
+        base, i, c_in = f"encoder.encoder.{bi}.mconv", 0, n_in
+        for r in range(cfg.repeat):
+            if cfg.separable:
+                sd[f"{base}.{i}.conv.weight"] = t.w(c_in, 1, cfg.kernel)
+                i += 1
+            sd[f"{base}.{i}.conv.weight"] = t.w(cfg.filters, c_in,
+                                                1 if cfg.separable else cfg.kernel)
+            _bn(sd, t, f"{base}.{i + 1}", cfg.filters)
+            i += 2 if r == cfg.repeat - 1 else 4
+            c_in = cfg.filters
+        if cfg.se:
+            sd[f"{base}.{i}.fc.0.weight"] = t.w(cfg.filters // cfg.se_reduction, cfg.filters)
+            sd[f"{base}.{i}.fc.2.weight"] = t.w(cfg.filters, cfg.filters // cfg.se_reduction)
+        if cfg.residual:
+            sd[f"encoder.encoder.{bi}.res.0.0.conv.weight"] = t.w(cfg.filters, n_in, 1)
+            _bn(sd, t, f"encoder.encoder.{bi}.res.0.1", cfg.filters)
+        n_in = cfg.filters
+    return sd
+
+
+def jasper_config(cfgs) -> dict:
+    return {"jasper": [{"filters": c.filters, "repeat": c.repeat, "kernel": [c.kernel],
+                        "stride": [1], "dilation": [c.dilation], "dropout": 0.0,
+                        "residual": c.residual, "separable": c.separable, "se": c.se,
+                        "se_reduction_ratio": c.se_reduction} for c in cfgs]}
+
+
+def write_nemo(path: str, config_dict: dict, sd: dict, yaml_module) -> None:
+    """A .nemo (a gzipped tar): ``model_config.yaml`` (JSON, which is YAML,
+    where PyYAML is absent) and ``model_weights.ckpt``."""
+    import io
+    import tarfile
+
+    import torch
+
+    text = yaml_module.safe_dump(config_dict) if yaml_module else json.dumps(config_dict)
+    buf = io.BytesIO()
+    torch.save(sd, buf)
+    with tarfile.open(path, "w:gz") as tar:
+        for name, blob in (("./model_config.yaml", text.encode()),
+                           ("./model_weights.ckpt", buf.getvalue())):
+            info = tarfile.TarInfo(name)
+            info.size = len(blob)
+            tar.addfile(info, io.BytesIO(blob))
+
+
+def nemo_weights_of(path: str) -> dict:
+    """A .nemo's state dict as float32 numpy (``extract_nemo`` less its
+    yaml read)."""
+    import io
+    import tarfile
+
+    import torch
+
+    from whisper_nemo_tpu_torch.engine.nemo_weights import _to_numpy
+
+    with tarfile.open(path, "r:*") as tar:
+        member = next(m for m in tar.getmembers() if m.name.endswith(".ckpt"))
+        state = torch.load(io.BytesIO(tar.extractfile(member).read()), map_location="cpu",
+                           weights_only=True)
+    return {k: _to_numpy(v) for k, v in state.items()}
+
+
+# 5j's sources at the published dims, the HF models' depth cut to 2 layers:
+# MarbleNet 3x2x64's blocks (NeMo's marblenet_3x2x64 config; the port's
+# MarbleNetDims widths and kernels), TitaNet-large's (models/titanet.TitaNetDims),
+# the telephonic MSDD (MsddDims()), pyannote segmentation-3.0, the released
+# htdemucs (HTDemucsDims()), MMS-300M and XLM-R base. A CPU rehearsal patches a
+# smaller copy in.
+CONVERTED = {
+    "whisper": "medium.en",
+    "marblenet": dict(n_mels=64, blocks=[
+        dict(filters=128, kernel=11, separable=True),
+        *(dict(filters=64, repeat=2, kernel=k, separable=True, residual=True)
+          for k in (13, 15, 17)),
+        dict(filters=128, kernel=29, dilation=2, separable=True), dict(filters=128, kernel=1)]),
+    "titanet": dict(n_mels=80, attention=128, emb=192, blocks=[
+        dict(filters=1024, kernel=3, separable=True),
+        *(dict(filters=1024, repeat=3, kernel=k, separable=True, residual=True, se=True,
+               se_reduction=16) for k in (7, 11, 15)),
+        dict(filters=3072, kernel=1)]),
+    "msdd": {},
+    "pyannet": dict(sinc=80, conv=60, hidden=128, layers=4, classes=7),
+    "demucs": {},
+    "mms": dict(width=1024, heads=16, conv=512, pos=128, groups=16, layers=2),
+    "xlmr": dict(vocab=250002, width=768, heads=12, positions=514, layers=2),
+}
+
+
+def write_converted_sources(src: str, seed: int, device) -> dict:
+    """5j's sources in the published layouts at the published dims, from
+    ``seed`` (the depth of the HF aligner and punctuation models cut to 2
+    layers): kind -> (path, the CLI's extra arguments, the .nemo kinds'
+    config dict)."""
+    import fractions
+
+    import torch
+
+    from whisper_nemo_tpu_torch.align.api import AlignmentTokenizer
+    from whisper_nemo_tpu_torch.engine.demucs_weights import _DCONV_RENAME
+    from whisper_nemo_tpu_torch.models import htdemucs, msdd
+    from whisper_nemo_tpu_torch.models.conv_asr import JasperBlockCfg
+    from whisper_nemo_tpu_torch.models.whisper import WHISPER_DIMS
+
+    try:
+        import yaml
+    except ImportError:
+        yaml = None
+    t = SeededTensors(seed + 110, device)
+    out = {}
+
+    name = CONVERTED["whisper"]
+    dims = WHISPER_DIMS[name]
+    path = os.path.join(src, f"{name}.pt")
+    torch.save({"dims": dataclasses.asdict(dims), "model_state_dict": openai_whisper_state(dims, t)},
+               path)
+    out["whisper-pt"] = (path, ["--name", name], None)
+
+    marblenet, titanet = CONVERTED["marblenet"], CONVERTED["titanet"]
+    vad_cfgs = [JasperBlockCfg(**b) for b in marblenet["blocks"]]
+    sd = jasper_state(vad_cfgs, marblenet["n_mels"], t)
+    # the frame-VAD head (one 1x1 conv) leans to speech, so that the 0.8
+    # onset keeps the voices (random logits sit near 0.5)
+    sd["decoder.decoder_layers.0.weight"] = 0.05 * t.w(2, vad_cfgs[-1].filters, 1)
+    sd["decoder.decoder_layers.0.bias"] = torch.tensor([0.0, 4.0])
+    config = {"preprocessor": {"features": marblenet["n_mels"]},
+              "encoder": jasper_config(vad_cfgs)}
+    out["vad"] = (os.path.join(src, "vad_multilingual_marblenet.nemo"), [], config)
+
+    spk_cfgs = [JasperBlockCfg(**b) for b in titanet["blocks"]]
+    c, att, emb = spk_cfgs[-1].filters, titanet["attention"], titanet["emb"]
+    sd_spk = jasper_state(spk_cfgs, titanet["n_mels"], t)
+    p = "decoder._pooling.attention_layer"
+    sd_spk[f"{p}.0.conv_layer.weight"] = t.w(att, 3 * c, 1)
+    sd_spk[f"{p}.0.conv_layer.bias"] = t.shift(att)
+    _bn(sd_spk, t, f"{p}.0.bn", att)
+    sd_spk[f"{p}.2.weight"], sd_spk[f"{p}.2.bias"] = t.w(c, att, 1), t.shift(c)
+    _bn(sd_spk, t, "decoder.emb_layers.0.0", 2 * c)
+    sd_spk["decoder.emb_layers.0.1.weight"] = t.w(emb, 2 * c, 1)
+    sd_spk["decoder.emb_layers.0.1.bias"] = t.shift(emb)
+    config_spk = {"preprocessor": {"features": titanet["n_mels"]},
+                  "encoder": jasper_config(spk_cfgs),
+                  "decoder": {"attention_channels": att, "emb_sizes": emb}}
+    out["titanet"] = (os.path.join(src, "titanet_large.nemo"), [], config_spk)
+
+    m = msdd.MsddDims(**CONVERTED["msdd"])
+    sd_msdd, n_feat = {}, 2 * m.n_scales + 2
+    for sfx in ("", "_reverse"):
+        sd_msdd[f"msdd.lstm.weight_ih_l0{sfx}"] = t.w(4 * m.hidden, m.proj)
+        sd_msdd[f"msdd.lstm.weight_hh_l0{sfx}"] = t.w(4 * m.hidden, m.hidden)
+        sd_msdd[f"msdd.lstm.bias_ih_l0{sfx}"] = t.shift(4 * m.hidden)
+        sd_msdd[f"msdd.lstm.bias_hh_l0{sfx}"] = t.shift(4 * m.hidden)
+    sd_msdd["msdd.hidden_to_spks.weight"] = t.w(2, 2 * m.hidden)
+    sd_msdd["msdd.hidden_to_spks.bias"] = t.shift(2)
+    sd_msdd["msdd.dist_to_emb.weight"] = t.w(m.proj, n_feat)
+    sd_msdd["msdd.dist_to_emb.bias"] = t.shift(m.proj)
+    config_msdd = {"msdd_module": {"num_lstm_layers": 1, "hidden_size": m.hidden}}
+    out["msdd"] = (os.path.join(src, "diar_msdd_telephonic.nemo"), [], config_msdd)
+    for kind, state in (("vad", sd), ("titanet", sd_spk), ("msdd", sd_msdd)):
+        write_nemo(out[kind][0], out[kind][2], state, yaml)
+
+    # pyannote segmentation-3.0 (SincNet 80, 4 BiLSTM layers of 128, 7 classes) in a
+    # lightning checkpoint whose hyper-parameters are an object of lightning's
+    py = CONVERTED["pyannet"]
+    n, ch, h = py["sinc"], py["conv"], py["hidden"]
+    g = torch.Generator().manual_seed(seed + 111)
+    sd_py = {"sincnet.wav_norm1d.weight": t.scale(1), "sincnet.wav_norm1d.bias": t.shift(1),
+             "sincnet.conv1d.0.filterbank.low_hz_": 2000 * torch.rand((n, 1), generator=g),
+             "sincnet.conv1d.0.filterbank.band_hz_": 1000 * torch.rand((n, 1), generator=g)}
+    for i, c_in in ((1, n), (2, ch)):
+        sd_py[f"sincnet.conv1d.{i}.weight"] = t.w(ch, c_in, 5)
+        sd_py[f"sincnet.conv1d.{i}.bias"] = t.shift(ch)
+    for i, c_out in enumerate((n, ch, ch)):
+        sd_py[f"sincnet.norm1d.{i}.weight"] = t.scale(c_out)
+        sd_py[f"sincnet.norm1d.{i}.bias"] = t.shift(c_out)
+    for layer in range(py["layers"]):
+        for sfx in ("", "_reverse"):
+            sd_py[f"lstm.weight_ih_l{layer}{sfx}"] = t.w(4 * h, ch if layer == 0 else 2 * h)
+            sd_py[f"lstm.weight_hh_l{layer}{sfx}"] = t.w(4 * h, h)
+            sd_py[f"lstm.bias_ih_l{layer}{sfx}"] = t.shift(4 * h)
+            sd_py[f"lstm.bias_hh_l{layer}{sfx}"] = t.shift(4 * h)
+    for key, (o, c_in) in (("linear.0", (h, 2 * h)), ("linear.1", (h, h)),
+                           ("classifier", (py["classes"], h))):
+        sd_py[f"{key}.weight"], sd_py[f"{key}.bias"] = t.w(o, c_in), t.shift(o)
+    path = os.path.join(src, "pytorch_model.bin")
+    with foreign_class("pytorch_lightning.utilities.parsing", "AttributeDict") as hparams:
+        torch.save({"state_dict": {"model." + k: v for k, v in sd_py.items()},
+                    "pyannote.audio": {"versions": {"torch": torch.__version__}},
+                    "hyper_parameters": hparams()}, path)
+    out["pyannote"] = (path, [], None)
+
+    # htdemucs at the released model's dims, demucs' serialize_model dict
+    ddims = htdemucs.HTDemucsDims(**CONVERTED["demucs"])
+    tree = htdemucs.init_htdemucs_params(ddims, t.device, t.g)
+    inverse = {v: k for k, v in _DCONV_RENAME.items()}
+    state = {}
+
+    def walk(node, parts):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, parts + [k])
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, parts + [str(i)])
+        else:
+            if "dconv" in parts:
+                i = parts.index("dconv") + 3
+                parts = parts[:i] + (["6", "scale"] if parts[i] == "scale"
+                                     else [inverse[parts[i]]] + parts[i + 1:])
+            state[".".join(parts)] = node.cpu()
+
+    walk(tree, [])
+    path = os.path.join(src, "htdemucs.th")
+    with foreign_class("demucs.htdemucs", "HTDemucs") as klass:
+        torch.save({"klass": klass, "args": (), "state": state,
+                    "kwargs": {"sources": list(ddims.sources), "audio_channels": 2,
+                               "samplerate": 44100, "segment": fractions.Fraction(39, 5)}}, path)
+    out["demucs"] = (path, [], None)
+
+    # HF directories at MMS-300M's and XLM-R base's widths, 2 layers each
+    mms, xlmr = CONVERTED["mms"], CONVERTED["xlmr"]
+    vocab = len(AlignmentTokenizer().vocab) - 1
+    d, cw, pre, sd_w2v = mms["width"], mms["conv"], "wav2vec2.", {}
+    conv_kernel, conv_stride = (10, 3, 3, 3, 3, 2, 2), (5, 2, 2, 2, 2, 2, 2)
+    c_in = 1
+    for i, k in enumerate(conv_kernel):
+        q = f"{pre}feature_extractor.conv_layers.{i}"
+        sd_w2v[f"{q}.conv.weight"], sd_w2v[f"{q}.conv.bias"] = t.w(cw, c_in, k), t.shift(cw)
+        sd_w2v[f"{q}.layer_norm.weight"], sd_w2v[f"{q}.layer_norm.bias"] = t.scale(cw), t.shift(cw)
+        c_in = cw
+
+    def lin(sd_, q, o, i):
+        sd_[f"{q}.weight"], sd_[f"{q}.bias"] = t.w(o, i), t.shift(o)
+
+    def ln(sd_, q, n):
+        sd_[f"{q}.weight"], sd_[f"{q}.bias"] = t.scale(n), t.shift(n)
+
+    ln(sd_w2v, f"{pre}feature_projection.layer_norm", cw)
+    lin(sd_w2v, f"{pre}feature_projection.projection", d, cw)
+    q = f"{pre}encoder.pos_conv_embed.conv"
+    sd_w2v[f"{q}.parametrizations.weight.original0"] = t.scale(mms["pos"]).reshape(1, 1, -1)
+    sd_w2v[f"{q}.parametrizations.weight.original1"] = t.w(d, d // mms["groups"], mms["pos"])
+    sd_w2v[f"{q}.bias"] = t.shift(d)
+    ln(sd_w2v, f"{pre}encoder.layer_norm", d)
+    for i in range(mms["layers"]):
+        q = f"{pre}encoder.layers.{i}"
+        for n in ("q", "k", "v", "out"):
+            lin(sd_w2v, f"{q}.attention.{n}_proj", d, d)
+        ln(sd_w2v, f"{q}.layer_norm", d)
+        lin(sd_w2v, f"{q}.feed_forward.intermediate_dense", 4 * d, d)
+        lin(sd_w2v, f"{q}.feed_forward.output_dense", d, 4 * d)
+        ln(sd_w2v, f"{q}.final_layer_norm", d)
+    lin(sd_w2v, "lm_head", vocab, d)
+    cfg_w2v = {"model_type": "wav2vec2", "vocab_size": vocab, "hidden_size": d,
+               "num_hidden_layers": mms["layers"], "num_attention_heads": mms["heads"],
+               "intermediate_size": 4 * d, "conv_dim": [cw] * 7, "conv_kernel": list(conv_kernel),
+               "conv_stride": list(conv_stride), "num_conv_pos_embeddings": mms["pos"],
+               "num_conv_pos_embedding_groups": mms["groups"], "do_stable_layer_norm": True,
+               "feat_extract_norm": "layer", "conv_bias": True}
+    d, sd_x = xlmr["width"], {}
+    sd_x["roberta.embeddings.word_embeddings.weight"] = t.w(xlmr["vocab"], d)
+    sd_x["roberta.embeddings.position_embeddings.weight"] = t.w(xlmr["positions"], d)
+    sd_x["roberta.embeddings.token_type_embeddings.weight"] = t.w(1, d)
+    ln(sd_x, "roberta.embeddings.LayerNorm", d)
+    for i in range(xlmr["layers"]):
+        q = f"roberta.encoder.layer.{i}"
+        for n in ("query", "key", "value"):
+            lin(sd_x, f"{q}.attention.self.{n}", d, d)
+        lin(sd_x, f"{q}.attention.output.dense", d, d)
+        ln(sd_x, f"{q}.attention.output.LayerNorm", d)
+        lin(sd_x, f"{q}.intermediate.dense", 4 * d, d)
+        lin(sd_x, f"{q}.output.dense", d, 4 * d)
+        ln(sd_x, f"{q}.output.LayerNorm", d)
+    lin(sd_x, "classifier", 6, d)
+    cfg_x = {"model_type": "xlm-roberta", "vocab_size": xlmr["vocab"], "hidden_size": d,
+             "num_hidden_layers": xlmr["layers"], "num_attention_heads": xlmr["heads"],
+             "intermediate_size": 4 * d, "max_position_embeddings": xlmr["positions"],
+             "id2label": {str(i): lab for i, lab in enumerate("0.,?-:")}}
+    for kind, name, cfg, sd_ in (("aligner", "mms-300m", cfg_w2v, sd_w2v),
+                                 ("punctuation", "punctuate-all", cfg_x, sd_x)):
+        directory = os.path.join(src, name)
+        os.makedirs(directory)
+        with open(os.path.join(directory, "config.json"), "w") as f:
+            json.dump(cfg, f)
+        write_safetensors(os.path.join(directory, "model.safetensors"), sd_)
+        out[kind] = (directory, [], None)
+    return out
+
+
+# runs its arguments as a command and reports the command's peak RSS: a
+# process that forks from this small one inherits few pages, where one forked
+# from the smoke itself would count the smoke's pages in its maximum
+_PEAK_RSS = ("import resource, subprocess, sys; rc = subprocess.call(sys.argv[1:]); "
+             "print('peak RSS KiB', resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss,"
+             " file=sys.stderr); sys.exit(rc)")
+
+
+def convert_in_children(sources: dict, work: str) -> dict:
+    """``python -m whisper_nemo_tpu_torch.cli.convert`` on each source, in
+    new processes started together, each into ``work/<kind>``
+    (``-X importtime``: its stderr lists every module it imported): per
+    kind its exit code, seconds, peak RSS (``_PEAK_RSS``), the files it
+    wrote and their bytes, and the banned modules it imported."""
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    jobs = {}
+    with contextlib.ExitStack() as stack:
+        for kind, (path, extra, _) in sources.items():
+            out_dir = os.path.join(work, kind)
+            os.makedirs(out_dir)
+            out, err = (stack.enter_context(tempfile.TemporaryFile("w+")) for _ in range(2))
+            cmd = [sys.executable, "-c", _PEAK_RSS, sys.executable, "-X", "importtime", "-m",
+                   "whisper_nemo_tpu_torch.cli.convert", kind, path, "--out-dir", out_dir, *extra]
+            jobs[kind] = {"proc": subprocess.Popen(cmd, stdout=out, stderr=err, env=env),
+                          "t0": time.time(), "out": out, "err": err, "dir": out_dir}
+        running = set(jobs)
+        while running:
+            for kind in sorted(running):
+                if jobs[kind]["proc"].poll() is not None:
+                    jobs[kind]["seconds"] = time.time() - jobs[kind]["t0"]
+                    running.discard(kind)
+            time.sleep(0.02)
+        results = {}
+        for kind, job in jobs.items():
+            job["out"].seek(0)
+            job["err"].seek(0)
+            lines = job["err"].read().splitlines()
+            imported = {line.split("|")[-1].strip() for line in lines
+                        if line.startswith("import time:")}
+            rss = [int(line.split()[-1]) for line in lines if line.startswith("peak RSS KiB")]
+            files = sorted(os.listdir(job["dir"]))
+            results[kind] = {
+                "rc": job["proc"].returncode, "seconds": job["seconds"],
+                "rss_gib": rss[-1] / 2**20, "dir": job["dir"], "files": files,
+                "bytes": sum(os.path.getsize(os.path.join(job["dir"], f)) for f in files),
+                "banned": sorted(m for m in imported if m.split(".")[0] in CONVERT_BANNED),
+                "stdout": job["out"].read(),
+                "errors": "\n".join(line for line in lines if not line.startswith(
+                    ("import time:", "peak RSS KiB")))[-2000:]}
+    return results
+
+
+def phase_converted(seed: int, smi: str, devices=("cuda", "cpu")) -> list:
+    """5j: the published checkpoint layouts through the port's converters
+    and loaders, on the card. Seeded sources at the published dims
+    (``write_converted_sources``) each go through ``python -m
+    whisper_nemo_tpu_torch.cli.convert`` in a new process into one model
+    directory (seconds, bytes written, peak RSS; none of CONVERT_BANNED
+    imported). Where PyYAML is absent the .nemo kinds must raise naming it,
+    and their ``convert_*`` run in process on the config dict. Then on
+    ``devices[0]``, every kernel count set to 0 just before and read just
+    after: medium.en from the converted file through the batched facade
+    at "float16", greedy, on CONVERTED_SECONDS of four voices (kernels C,
+    B, A), and the same run on the tree ``params_from_jax`` builds in
+    memory from the converter's output: the tokens equal; the converted
+    MMS-sized aligner's emissions (kernel B). Against ``devices[1]``:
+    NeuralDiarizer on the converted MarbleNet, TitaNet and MSDD (the
+    conv_asr path) on the same audio, MarbleNet's probabilities within
+    PROB_TOL, embeddings within DIAR_EMB_TOL, MSDD's mean sigmoids within
+    DIAR_MSDD_TOL, the turns equal where the eigengap exceeds DIAR_GAP;
+    PyanNet's probabilities within PROB_TOL; htdemucs on
+    DEMUCS_CONVERTED_SECONDS within DEMUCS_TOL of the largest output; the
+    punctuation model's labels. Returns the kernels' JSON entries at the
+    shapes the converted runs launched them at (held as 6g holds them)."""
+    import torch
+
+    from whisper_nemo_tpu_torch.align.api import generate_emissions, load_alignment_model
+    from whisper_nemo_tpu_torch.asr import BatchedInferencePipeline, WhisperModel
+    from whisper_nemo_tpu_torch.cli import convert
+    from whisper_nemo_tpu_torch.config import create_config
+    from whisper_nemo_tpu_torch.diarize import NeuralDiarizer
+    from whisper_nemo_tpu_torch.diarize.segments import multiscale_segmentation
+    from whisper_nemo_tpu_torch.engine import nemo_weights
+    from whisper_nemo_tpu_torch.engine.checkpoint import load_params, params_from_jax
+    from whisper_nemo_tpu_torch.engine.precision import full_f32
+    from whisper_nemo_tpu_torch.engine.weights import (convert_openai_whisper_state_dict,
+                                                       dims_from_openai_dims)
+    from whisper_nemo_tpu_torch.models import htdemucs, msdd, pyannet
+    from whisper_nemo_tpu_torch.models.punctuation import PUNCT_LABELS, PunctuationModel
+    from whisper_nemo_tpu_torch.ops import attention as at
+    from whisper_nemo_tpu_torch.ops import cross_decode as cd
+    from whisper_nemo_tpu_torch.ops import mel
+
+    gpu, cpu = devices
+    t_phase = time.time()
+    has_yaml = importlib.util.find_spec("yaml") is not None
+    with contextlib.ExitStack() as stack:
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        src, models = os.path.join(tmp, "src"), os.path.join(tmp, "models")
+        os.makedirs(src)
+        os.makedirs(models)
+        stack.enter_context(model_dir(models))
+        t0 = time.time()
+        sources = write_converted_sources(src, seed, gpu)
+        src_s = time.time() - t0
+        src_bytes = sum(e.stat().st_size for e in os.scandir(src) if e.is_file()) + sum(
+            os.path.getsize(os.path.join(src, d, f)) for d in ("mms-300m", "punctuate-all")
+            for f in os.listdir(os.path.join(src, d)))
+        print(f"[5j converted checkpoints] {smi} | sources written from the seed in {src_s:.1f} s,"
+              f" {src_bytes / 2**30:.2f} GiB: {CONVERTED['whisper']}.pt (OpenAI's layout, f16),"
+              f" .nemo tars of"
+              f" vad_multilingual_marblenet (MarbleNet 3x2x64), titanet_large and"
+              f" diar_msdd_telephonic, pyannote segmentation-3.0's lightning pytorch_model.bin,"
+              f" htdemucs.th (demucs' klass a stub of a module no process here imports), HF"
+              f" directories of MMS-300M and XLM-R base at 2 layers | PyYAML"
+              f" {'present' if has_yaml else 'absent'}")
+
+        t0 = time.time()
+        results = convert_in_children(sources, os.path.join(tmp, "conv"))
+        conv_s = time.time() - t0
+        rows = []
+        for kind, r in results.items():
+            path, _, config = sources[kind]
+            check(not r["banned"], f"5j {kind}: the conversion imported {r['banned']}")
+            if kind in ("vad", "titanet", "msdd") and not has_yaml:
+                check(r["rc"] != 0 and "PyYAML" in r["errors"], f"5j {kind}: without PyYAML the"
+                      f" .nemo read did not raise naming it (rc {r['rc']}): {r['errors']}")
+                sd = nemo_weights_of(path)
+                with patched(nemo_weights, "extract_nemo", lambda p, c=config, s=sd: (c, s)):
+                    t0 = time.time()
+                    convert.convert_nemo(kind, path, os.path.splitext(os.path.basename(path))[0],
+                                         r["dir"])
+                    r["seconds"] = time.time() - t0
+                r["files"] = sorted(os.listdir(r["dir"]))
+                r["bytes"] = sum(os.path.getsize(os.path.join(r["dir"], f)) for f in r["files"])
+                note = ("the tar's YAML read not run: PyYAML absent (the child raised naming it);"
+                        " convert_* ran in process on the config dict")
+            else:
+                check(r["rc"] == 0, f"5j {kind}: the conversion exited {r['rc']}: {r['errors']}")
+                note = "exit 0"
+            for name in r["files"]:
+                os.replace(os.path.join(r["dir"], name), os.path.join(models, name))
+            rows.append(f"{kind} {r['seconds']:.1f} s, {r['bytes'] / 2**20:.1f} MiB"
+                        f" ({', '.join(r['files'])}), peak RSS {r['rss_gib']:.2f} GiB ({note})")
+        print(f"[5j conversions] python -m whisper_nemo_tpu_torch.cli.convert, the {len(rows)}"
+              f" started together as new processes, {conv_s:.1f} s in all, none importing"
+              f" {', '.join(CONVERT_BANNED)}: " + "; ".join(rows))
+
+        # Whisper: the converted file, and the converter's tree in memory
+        pt = torch.load(sources["whisper-pt"][0], map_location="cpu", weights_only=True)
+        w_dims = dims_from_openai_dims(pt["dims"])
+        tree = convert_openai_whisper_state_dict(pt["model_state_dict"], w_dims)
+        del pt
+        audio = voices(CONVERTED_SECONDS, seed + 112, 4)
+        counters = (cd.cross_attention_decode_layered, at.encoder_attention, mel.log_mel_raw)
+        for fn in counters:
+            fn.launches = 0
+        shapes = recording_launches(stack)
+        runs = {}
+        for what in ("file", "memory"):
+            t0 = time.time()
+            if what == "file":
+                model = WhisperModel(CONVERTED["whisper"], device=gpu, compute_type="float16",
+                                     seed=seed)
+            else:
+                model = WhisperModel(CONVERTED["whisper"], device=gpu, compute_type="float16",
+                                     seed=seed,
+                                     params=params_from_jax(tree, gpu), dims=w_dims)
+            load_s = time.time() - t0
+            before = [fn.launches for fn in counters]
+            t0 = time.time()
+            segments, _ = BatchedInferencePipeline(model).transcribe(audio, language="en",
+                                                                      batch_size=8, beam_size=1)
+            segments = list(segments)
+            torch.cuda.synchronize()
+            runs[what] = ([s.tokens for s in segments], load_s, time.time() - t0,
+                          [fn.launches - b for fn, b in zip(counters, before)])
+            model.engine.unload()
+            del model
+        del tree
+        torch.cuda.empty_cache()
+        check(runs["file"][0] == runs["memory"][0] and runs["file"][0],
+              "5j: medium.en's tokens from the converted file differ from those of the"
+              " converter's tree in memory")
+        for what, (toks, load_s, wall, (a, b, c)) in runs.items():
+            check(a > 0 and b > 0 and c > 0, f"5j: a kernel of the converted medium.en's path"
+                  f" never launched ({what}: A {a}, B {b}, C {c})")
+        a_w, b_w, c_w = (x + y for x, y in zip(runs["file"][3], runs["memory"][3]))
+
+        # the aligner (bf16, as the flow runs it on the card) and the punctuation model
+        aligner, _ = load_alignment_model(gpu, dtype="bfloat16")
+        check(len(aligner.params["enc"]["layers"]) == CONVERTED["mms"]["layers"],
+              "5j: the aligner is not the converted one")
+        b0 = at.encoder_attention.launches
+        emissions, stride = generate_emissions(aligner, audio)
+        b_align = at.encoder_attention.launches - b0
+        check(b_align > 0 and np.isfinite(emissions).all() and emissions.shape[1] ==
+              len(aligner.params["lm_head"]["b"]), f"5j: the aligner's emissions"
+              f" {emissions.shape}, kernel B launched {b_align} times")
+        launches = [fn.launches for fn in counters]
+        punct = PunctuationModel(device=gpu)
+        check(len(punct.params["layers"]) == CONVERTED["xlmr"]["layers"],
+              "5j: the punctuation model is not the converted one")
+        words = "the converted model reads these words and labels each one of them".split()
+        labels = punct.predict(words * 4)
+        check(len(labels) == 4 * len(words) and all(lab in PUNCT_LABELS for _, lab, _ in labels),
+              "5j: punctuation labels")
+        del aligner, punct
+        print(f"[5j converted medium.en] \"float16\" (bf16 weights, the int8 cross-KV), batch 8,"
+              f" greedy, {CONVERTED_SECONDS:.0f} s of four voices: tokens equal between the"
+              f" converted file and the converter's tree in memory ({len(runs['file'][0])}"
+              f" windows, {sum(map(len, runs['file'][0]))} tokens) | load {runs['file'][1]:.1f} s"
+              f" from the .npz, {runs['memory'][1]:.1f} s from memory; transcribe"
+              f" {runs['file'][2]:.2f} / {runs['memory'][2]:.2f} s | launches, both runs: A {a_w},"
+              f" B {b_w}, C {c_w} | the aligner (2 layers, bf16) on the same audio: emissions"
+              f" {emissions.shape}, {stride:.2f} ms a frame, kernel B {b_align} launches | the"
+              f" punctuation model (XLM-R base widths, 2 layers): {len(labels)} labels | kernels,"
+              f" the whole of 5j: A {launches[0]}, B {launches[1]}, C {launches[2]}")
+
+        # NeMo: the conv_asr path on both devices
+        cfg = create_config(os.path.join(tmp, "run"), "telephonic")
+        diars = [NeuralDiarizer(cfg, device=dev, seed=seed) for dev in devices]
+        for d in diars:
+            check(d._vad_cfgs is not None and d._spk_cfgs is not None
+                  and d.spk_dims.emb_dim == CONVERTED["titanet"]["emb"]
+                  and {"in", "lstm", "lstm_rev", "out"} <= set(d.msdd_params),
+                  "5j: the diarizer did not take the converted Jasper stacks and MSDD")
+        seen = {}
+        for d in diars:
+            for attr in ("_frame_speech_probs", "_mapped_embeddings"):
+                def keep(*args, _f=getattr(d, attr), _k=(str(d.device), attr), **kw):
+                    seen[_k] = _f(*args, **kw)
+                    return seen[_k]
+                setattr(d, attr, keep)
+        turns, stats, walls = [], [], []
+        for d in diars:
+            st = {}
+            t0 = time.time()
+            turns.append(d.diarize_waveform(audio, num_speakers=4, stats=st))
+            if d.device.type == "cuda":
+                torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            stats.append(st)
+        keys = [str(d.device) for d in diars]
+        probs = [seen[(k, "_frame_speech_probs")] for k in keys]
+        prob_err = float(np.abs(probs[0] - probs[1]).max())
+        check(prob_err <= PROB_TOL, f"5j: MarbleNet's probabilities {prob_err:.2e} apart")
+        speech = float((probs[1] > cfg.diarizer.vad.parameters.onset).mean())
+        check(speech > 0.2, f"5j: the converted VAD found speech in {speech:.0%} of the frames")
+        mapped = [seen[(k, "_mapped_embeddings")] for k in keys]
+        emb_err = max(float((a.cpu() - b.cpu()).abs().max()) for a, b in zip(*mapped))
+        check(emb_err <= DIAR_EMB_TOL, f"5j: TitaNet's embeddings {emb_err:.2e} apart")
+        weights = cfg.diarizer.speaker_embeddings.parameters.multiscale_weights
+        seg = torch.stack([e.cpu() for e in mapped[1]])
+        with full_f32(), torch.inference_mode():
+            cpu_labels = diars[1]._cluster_labels(list(mapped[1]), 4)
+            sig = [msdd.msdd_mean_sigmoids(d.msdd_params, seg.to(d.device), cpu_labels,
+                                           weights)[0] for d in diars]
+        sig_err = float(np.abs(sig[0] - sig[1]).max())
+        check(sig_err <= DIAR_MSDD_TOL, f"5j: MSDD's mean sigmoids {sig_err:.2e} apart")
+        gap = stats[1].get("eigengap", 0.0)
+        if gap > DIAR_GAP:
+            check(turns[0] == turns[1], "5j: the turns differ between the devices")
+        print(f"[5j converted NeMo] NeuralDiarizer, telephonic, the converted MarbleNet 3x2x64,"
+              f" TitaNet-large and MSDD through models/conv_asr.py, {CONVERTED_SECONDS:.0f} s of"
+              f" four voices, num_speakers 4, {devices[0]} against {devices[1]}: wall"
+              f" {walls[0]:.2f} / {walls[1]:.2f} s | speech share {speech:.3f} | MarbleNet"
+              f" probabilities max|err| {prob_err:.2e} (<= {PROB_TOL}) | embeddings max|err|"
+              f" {emb_err:.2e} (<= {DIAR_EMB_TOL}), n_base {stats[1].get('n_base')} | MSDD mean"
+              f" sigmoids max|err| {sig_err:.2e} (<= {DIAR_MSDD_TOL}) | eigengap {gap:.4f}: turns "
+              + (f"equal ({len(turns[1])})" if gap > DIAR_GAP else
+                 f"not held (the gap is at or below {DIAR_GAP}; {len(turns[0])} and"
+                 f" {len(turns[1])} turns)"))
+        del diars, seen
+
+        # PyanNet and htdemucs, both devices
+        pyannote_npz = os.path.join(models, "pyannote_segmentation.npz")
+        demucs_mix = 0.2 * np.random.default_rng(seed + 113).standard_normal(
+            (2, int(DEMUCS_CONVERTED_SECONDS * htdemucs.NATIVE_SAMPLE_RATE)))
+        outs = {}
+        for dev in devices:
+            params = load_params(pyannote_npz, dev)
+            sep, ddims = htdemucs.load_htdemucs(models, dev)
+            with full_f32(), torch.inference_mode():
+                outs[dev] = (pyannet.speech_probs(params, torch.from_numpy(audio).to(dev)[None]),
+                             htdemucs.apply_segments(sep, demucs_mix.astype(np.float32), ddims,
+                                                     device_out=True))
+            del params, sep
+        check(ddims.segment == 7.8 and ddims == htdemucs.HTDemucsDims(**CONVERTED["demucs"]),
+              f"5j: htdemucs' dims from the converted file and sidecar {ddims}")
+        py_err = float((outs[gpu][0].cpu() - outs[cpu][0]).abs().max())
+        sep_err = rel_err(outs[gpu][1], outs[cpu][1])
+        check(py_err <= PROB_TOL, f"5j: PyanNet's probabilities {py_err:.2e} apart")
+        check(sep_err <= DEMUCS_TOL and bool(torch.isfinite(outs[gpu][1]).all()),
+              f"5j: htdemucs' outputs {sep_err:.2e} apart (relative)")
+        print(f"[5j converted pyannote and htdemucs] {devices[0]} against {devices[1]}: PyanNet"
+              f" (segmentation-3.0 dims) on {CONVERTED_SECONDS:.0f} s, probabilities"
+              f" {tuple(outs[cpu][0].shape)} max|err| {py_err:.2e} (<= {PROB_TOL}) | htdemucs"
+              f" (released dims, segment {ddims.segment} s from the .th's kwargs) on"
+              f" {DEMUCS_CONVERTED_SECONDS:.0f} s at 44.1 kHz, sources"
+              f" {tuple(outs[cpu][1].shape)} within {sep_err:.2e} of the largest (<= {DEMUCS_TOL})"
+              f" | the phase took {time.time() - t_phase:.1f} s")
+        del outs
+        seen_shapes = {letter: counter for letter, counter in shapes.items() if counter}
+    torch.cuda.empty_cache()
+    return phase_flow_kernels({"5j": {"shapes": seen_shapes}}, seed + 114, tag="5j kernels",
+                              entry=lambda run, letter: True,
+                              label=lambda run: "converted checkpoints, 5j")
+
+
 def titanet_flops_per_frame(dims) -> float:
     """Multiply-adds x 2 of TitaNet's convs and pooling GEMMs per frame."""
     c = dims.filters
@@ -4284,6 +5042,7 @@ def main() -> int:
     phase_parallel_parity(args.seed)
     phase_separation_parity(args.seed)
     phase_flow_parity(args.seed, stem=True)
+    converted_entries = phase_converted(args.seed, smi)
     main_run = phase_main_path(args.seed)
     phase_stage_times(main_run, a, e)
     phase_align_stage_times(main_run, d["a"])
@@ -4370,6 +5129,9 @@ def main() -> int:
         # BASELINE config 3 through the CLI (6k: large-v3 "default", stemming): B, C, D and E
         # at each shape it launched them at (6l), with their launches there
         *config3_entries,
+        # the converted checkpoints (5j: medium.en "float16" greedy from the converted .pt, the
+        # converted aligner): A, B and C at each shape they launched them at, with their launches
+        *converted_entries,
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -777,6 +777,21 @@ def test_resample_poly_on_cuda(cuda_device):
 
 
 @pytest.mark.cuda
+def test_htdemucs_ispec_on_cuda(cuda_device):
+    """The inverse spectrogram at the released dims (nfft 4096) on a
+    spectrum whose DC bin has an imaginary part, as the network's mask
+    gives it: the card against the CPU within 1e-5 of the largest output
+    (cuFFT's inverse real FFT reads that part, which the CPU's drops)."""
+    dims = htdemucs.HTDemucsDims()
+    g = torch.Generator().manual_seed(10)
+    z = torch.randn((2, 2, dims.nfft // 2, 340), dtype=torch.complex64, generator=g)
+    length = 339 * dims.hop_length
+    want = htdemucs._ispec(z, dims, length)
+    got = htdemucs._ispec(z.to(cuda_device), dims, length).cpu()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
 def test_htdemucs_forward_on_cuda(cuda_device):
     """htdemucs at small dims (chip_smoke.DEMUCS_SMALL) on the card against
     the CPU, f32 with TF32 off: the forward of two mixes of 8,000 samples

@@ -166,6 +166,24 @@ def test_apply_segments_matches_jax(trees, mix, jax_vocals, batch_size, sources)
     assert isinstance(out, torch.Tensor) and out.shape == (1, 2, MIX_SAMPLES)
 
 
+def test_ispec_drops_the_dc_imaginary_part(monkeypatch):
+    """``_ispec`` hands ``torch.istft`` a DC bin with no imaginary part (the
+    CPU's inverse real FFT ignores it, cuFFT's does not), and its output
+    equals JAX's ``_ispec`` on a spectrum whose DC bin has one."""
+    dims = htdemucs.HTDemucsDims(nfft=512)
+    rng = np.random.default_rng(11)
+    z = (rng.standard_normal((2, 256, 40)) + 1j * rng.standard_normal((2, 256, 40))).astype(
+        np.complex64)
+    seen = []
+    istft = torch.istft
+    monkeypatch.setattr(torch, "istft", lambda zz, *a, **k: seen.append(zz) or istft(zz, *a, **k))
+    got = htdemucs._ispec(torch.from_numpy(z), dims, 39 * dims.hop_length)
+    assert float(seen[0][:, 0].imag.abs().max()) == 0.0
+    want = np.asarray(jax_demucs._ispec(jnp.asarray(z), jax_demucs.HTDemucsDims(nfft=512),
+                                        39 * dims.hop_length))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * float(np.abs(want).max()), rtol=0)
+
+
 def test_init_and_checkpoint_keep_the_jax_layout(trees, tmp_path):
     """The port's seeded init has the JAX tree's keys and shapes; a saved
     JAX tree loads unchanged (torch layouts already), and ``infer_dims``

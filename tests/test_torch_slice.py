@@ -244,7 +244,10 @@ def test_port_imports_no_jax():
     neither jax, the JAX package nor nltk (``post/punkt.py`` is the port's
     copy of the Punkt predicate it needs), nor pydantic or aiohttp, on
     which the port does not depend (the serving schemas are dataclasses;
-    aiohttp is imported by the calls that need it)."""
+    aiohttp is imported by the calls that need it), nor the packages of
+    the published checkpoints' formats: yaml (imported by the .nemo read
+    alone), safetensors, transformers and demucs (``engine/readers.py``
+    reads their files)."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "whisper_nemo_tpu_torch").rglob("*.py")
@@ -266,14 +269,19 @@ def test_port_imports_no_jax():
             "whisper_nemo_tpu_torch.utils.profiling", "whisper_nemo_tpu_torch.parallel.branch",
             "whisper_nemo_tpu_torch.cli.parallel", "whisper_nemo_tpu_torch.cli.nemo_process",
             "whisper_nemo_tpu_torch.models.pyannet", "whisper_nemo_tpu_torch.models.ecapa",
-            "whisper_nemo_tpu_torch.models.htdemucs", "whisper_nemo_tpu_torch.ops.resample"
+            "whisper_nemo_tpu_torch.models.htdemucs", "whisper_nemo_tpu_torch.ops.resample",
+            "whisper_nemo_tpu_torch.engine.readers", "whisper_nemo_tpu_torch.engine.weights",
+            "whisper_nemo_tpu_torch.engine.nemo_weights",
+            "whisper_nemo_tpu_torch.engine.pyannote_weights",
+            "whisper_nemo_tpu_torch.engine.demucs_weights", "whisper_nemo_tpu_torch.cli.convert"
             } <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'whisper_nemo_tpu', 'nltk',\n"
-        "                                    'pydantic', 'aiohttp'))\n"
+        "                                    'pydantic', 'aiohttp', 'yaml', 'safetensors',\n"
+        "                                    'transformers', 'demucs'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

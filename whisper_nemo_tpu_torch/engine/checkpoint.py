@@ -10,7 +10,8 @@ name; in the diarization convnets (MarbleNet, TitaNet, ECAPA-TDNN, the
 Jasper stacks of ``models/conv_asr.py`` and PyanNet) every 3-D array, as
 they hold no other; MSDD's weights are matrices and keep their layout;
 htdemucs' tree is in PyTorch's layouts already and keeps them.
-:func:`save_params` writes a port tree back as such a file.
+:func:`save_params` writes a port tree back as such a file, :func:`save_tree` a
+converter's tree of numpy arrays.
 """
 
 from __future__ import annotations
@@ -131,6 +132,13 @@ def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
 def save_params(path: str, params: Any) -> None:
     """Writes the port's tree as the JAX package's ``.npz`` checkpoint."""
     np.savez(path, **flatten_tree(params_to_jax(params)))
+
+
+def save_tree(path: str, tree: Any) -> None:
+    """Writes a tree of numpy arrays in the JAX package's layout (a
+    converter's output, ``engine/weights.py`` and its siblings) as the
+    ``.npz`` checkpoint, as the JAX package's ``save_params`` does."""
+    np.savez(path, **flatten_tree(tree))
 
 
 def to_device(tree: Any, device) -> Any:

@@ -100,9 +100,14 @@ def _spec(x: torch.Tensor, dims: HTDemucsDims) -> torch.Tensor:
 
 
 def _ispec(z: torch.Tensor, dims: HTDemucsDims, length: int) -> torch.Tensor:
-    """The inverse of ``_spec``: complex ``[..., nfft/2, frames]`` -> ``[..., length]``."""
+    """The inverse of ``_spec``: complex ``[..., nfft/2, frames]`` -> ``[..., length]``.
+    The DC bin's imaginary part is dropped first: numpy's, JAX's and
+    PyTorch's CPU inverse real FFTs ignore it, cuFFT's adds it in, and the
+    network's mask gives it one (at the released dims it moved the card's
+    output by 1.6e-3 of the largest)."""
     hl, nfft = dims.hop_length, dims.nfft
     z = F.pad(z, (2, 2, 0, 1))
+    z[..., 0, :].imag.zero_()  # on F.pad's copy: the caller's spectrum stays as it was
     pad = hl // 2 * 3
     le = hl * -(-length // hl) + 2 * pad
     x = torch.istft(z.reshape(-1, *z.shape[-2:]), nfft, hl, window=_hann(nfft, z.device),

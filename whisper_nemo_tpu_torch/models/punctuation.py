@@ -14,6 +14,9 @@ plain torch: the JAX package computes them through XLA, not a Pallas
 kernel. Tokens: a HF ``tokenizer.json`` beside the checkpoint when there
 is one, else one token a word by Python's ``hash()``, as in the JAX
 package (so both give the same ids within one process).
+``convert_hf_xlmr_state_dict`` and ``dims_from_hf_xlmr_config`` turn an HF
+``XLMRobertaForTokenClassification`` checkpoint into that tree
+(``cli/convert.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import logging
 import math
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 
 from ..engine.checkpoint import load_params, model_cache_dir
 from ..engine.precision import full_f32
+from ..engine.readers import as_f32
 from .whisper import _layer_norm as _ln
 from .whisper import _linear
 
@@ -113,6 +117,58 @@ def init_xlmr_params(dims: XlmRobertaDims, device, generator: torch.Generator) -
         "layers": layers,
         "head": lin(d, dims.num_labels),
     }
+
+
+def convert_hf_xlmr_state_dict(sd: Mapping, dims: XlmRobertaDims) -> Dict:
+    """HF ``XLMRobertaForTokenClassification.state_dict()`` → params."""
+    t = as_f32
+
+    def lin(prefix):
+        return {"w": t(sd[f"{prefix}.weight"]).T, "b": t(sd[f"{prefix}.bias"])}
+
+    def ln(prefix):
+        return {"g": t(sd[f"{prefix}.weight"]), "b": t(sd[f"{prefix}.bias"])}
+
+    pre = "roberta."
+    layers = []
+    for i in range(dims.num_layers):
+        lp = f"{pre}encoder.layer.{i}"
+        layers.append(
+            {
+                "attn": {
+                    "q": lin(f"{lp}.attention.self.query"),
+                    "k": lin(f"{lp}.attention.self.key"),
+                    "v": lin(f"{lp}.attention.self.value"),
+                    "o": lin(f"{lp}.attention.output.dense"),
+                },
+                "attn_ln": ln(f"{lp}.attention.output.LayerNorm"),
+                "ff_in": lin(f"{lp}.intermediate.dense"),
+                "ff_out": lin(f"{lp}.output.dense"),
+                "ff_ln": ln(f"{lp}.output.LayerNorm"),
+            }
+        )
+    return {
+        "tok_emb": t(sd[f"{pre}embeddings.word_embeddings.weight"]),
+        "pos_emb": t(sd[f"{pre}embeddings.position_embeddings.weight"]),
+        "type_emb": t(sd[f"{pre}embeddings.token_type_embeddings.weight"])[0],
+        "emb_ln": ln(f"{pre}embeddings.LayerNorm"),
+        "layers": layers,
+        "head": lin("classifier"),
+    }
+
+
+def dims_from_hf_xlmr_config(raw: Mapping) -> XlmRobertaDims:
+    """An HF ``config.json`` (as a dict) -> :class:`XlmRobertaDims`, as the
+    JAX package's converter takes them (``tools/convert_checkpoint.py``)."""
+    return XlmRobertaDims(
+        vocab_size=raw["vocab_size"],
+        hidden_size=raw["hidden_size"],
+        num_layers=raw["num_hidden_layers"],
+        num_heads=raw["num_attention_heads"],
+        intermediate_size=raw["intermediate_size"],
+        max_positions=raw["max_position_embeddings"],
+        num_labels=len(raw.get("id2label", {})) or 6,
+    )
 
 
 class _HashTokenizer:

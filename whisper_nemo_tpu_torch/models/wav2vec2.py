@@ -12,17 +12,20 @@ Parameters are the JAX package's nested dict, converted array by array
 positional conv's in ``[out, in/groups, k]``. The conv stack and the
 linears are plain PyTorch; the encoder's self-attention goes through
 ``ops/attention.multihead_attention``, so kernel B runs on a CUDA tensor.
+``convert_hf_wav2vec2_state_dict`` turns an HF ``Wav2Vec2ForCTC`` state
+dict into the JAX package's tree of numpy arrays (``cli/convert.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..engine.readers import as_f32 as _t
 from ..ops.attention import multihead_attention
 from .whisper import _layer_norm as _ln
 from .whisper import _linear
@@ -185,3 +188,112 @@ def ctc_logits(
     hidden = encoder(params["enc"], feats, dims)
     head = params["lm_head"]
     return torch.matmul(hidden.float(), head["w"].float()) + head["b"].float()
+
+
+# -- the HF checkpoint converter (counterpart of the JAX module's) -------------
+
+
+def convert_hf_wav2vec2_state_dict(
+    sd: Mapping, dims: Wav2Vec2Dims
+) -> Params:
+    """HF ``Wav2Vec2ForCTC.state_dict()`` → our param tree."""
+    pre = "wav2vec2."
+    conv_layers = []
+    for i in range(len(dims.conv_dim)):
+        layer = {
+            # HF conv: [out, in, k] -> [k, in, out]
+            "w": _t(
+                sd[f"{pre}feature_extractor.conv_layers.{i}.conv.weight"]
+            ).transpose(2, 1, 0)
+        }
+        bkey = f"{pre}feature_extractor.conv_layers.{i}.conv.bias"
+        if bkey in sd:
+            layer["cb"] = _t(sd[bkey])
+        gkey = f"{pre}feature_extractor.conv_layers.{i}.layer_norm.weight"
+        if gkey in sd:
+            g = _t(sd[gkey])
+            b = _t(
+                sd[f"{pre}feature_extractor.conv_layers.{i}.layer_norm.bias"]
+            )
+            if dims.do_stable_layer_norm:
+                layer["ln"] = {"g": g, "b": b}
+            else:
+                layer["gn_g"] = g
+                layer["gn_b"] = b
+        conv_layers.append(layer)
+
+    def lin(prefix):
+        p = {"w": _t(sd[f"{prefix}.weight"]).T}
+        if f"{prefix}.bias" in sd:
+            p["b"] = _t(sd[f"{prefix}.bias"])
+        return p
+
+    def ln(prefix):
+        return {
+            "g": _t(sd[f"{prefix}.weight"]),
+            "b": _t(sd[f"{prefix}.bias"]),
+        }
+
+    # conv pos embedding is stored weight-normalized (weight_g/weight_v
+    # or parametrizations.* in newer torch)
+    base = f"{pre}encoder.pos_conv_embed.conv"
+    if f"{base}.weight_g" in sd:
+        g = _t(sd[f"{base}.weight_g"])
+        v = _t(sd[f"{base}.weight_v"])
+    elif f"{base}.parametrizations.weight.original0" in sd:
+        g = _t(sd[f"{base}.parametrizations.weight.original0"])
+        v = _t(sd[f"{base}.parametrizations.weight.original1"])
+    else:
+        raise KeyError(f"no weight-normalised {base} (weight_g/weight_v or"
+                       " parametrizations.weight.original0/1) in the state dict")
+    norm = np.linalg.norm(v, axis=(0, 1), keepdims=True)
+    w = g * v / np.maximum(norm, 1e-12)  # [out, in/g, k]
+    pos_w = w.transpose(2, 1, 0)  # [k, in/g, out]
+
+    layers = []
+    for i in range(dims.num_layers):
+        lp = f"{pre}encoder.layers.{i}"
+        layers.append(
+            {
+                "attn": {
+                    "q": lin(f"{lp}.attention.q_proj"),
+                    "k": lin(f"{lp}.attention.k_proj"),
+                    "v": lin(f"{lp}.attention.v_proj"),
+                    "o": lin(f"{lp}.attention.out_proj"),
+                },
+                "attn_ln": ln(f"{lp}.layer_norm"),
+                "ff_in": lin(f"{lp}.feed_forward.intermediate_dense"),
+                "ff_out": lin(f"{lp}.feed_forward.output_dense"),
+                "ff_ln": ln(f"{lp}.final_layer_norm"),
+            }
+        )
+    return {
+        "fe": {"conv_layers": conv_layers},
+        "enc": {
+            "proj_ln": ln(f"{pre}feature_projection.layer_norm"),
+            "proj": lin(f"{pre}feature_projection.projection"),
+            "pos_conv": {
+                "w": pos_w,
+                "b": _t(sd[f"{base}.bias"]),
+            },
+            "enc_ln": ln(f"{pre}encoder.layer_norm"),
+            "layers": layers,
+        },
+        "lm_head": lin("lm_head"),
+    }
+
+
+def dims_from_hf_wav2vec2_config(cfg) -> Wav2Vec2Dims:
+    return Wav2Vec2Dims(
+        vocab_size=cfg.vocab_size,
+        hidden_size=cfg.hidden_size,
+        num_layers=cfg.num_hidden_layers,
+        num_heads=cfg.num_attention_heads,
+        intermediate_size=cfg.intermediate_size,
+        conv_dim=tuple(cfg.conv_dim),
+        conv_kernel=tuple(cfg.conv_kernel),
+        conv_stride=tuple(cfg.conv_stride),
+        num_conv_pos_embeddings=cfg.num_conv_pos_embeddings,
+        num_conv_pos_embedding_groups=cfg.num_conv_pos_embedding_groups,
+        do_stable_layer_norm=getattr(cfg, "do_stable_layer_norm", False),
+    )
